@@ -1,0 +1,12 @@
+"""ldpc_tpu_torch: the LDPC decoding framework in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A second package beside the JAX reference ``ldpc_tpu``; every module here has
+its namesake there. This package imports torch and numpy only, never JAX, and
+never ``ldpc_tpu`` (whose ``__init__`` imports JAX).
+
+Main path (``python -m ldpc_tpu_torch.bench``): ``codes.io.read_pcm`` ->
+``codes.gf2.gf2_nullspace`` -> ``channel.awgn.gen_random_codewords`` ->
+``harness.experiment.run_experiment`` with ``decoders.bp.BPDecoder``, which on
+a CUDA tensor runs the fused decode kernel in ``csrc/bp_decode.cu``.
+"""

@@ -1,0 +1,82 @@
+"""Builds and loads the package's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` source into one shared library with a
+plain C interface, ``build/ldpc_tpu_torch/libldpc_kernels.so`` under the
+checkout, at first use and again whenever a source is newer than the
+library. The library is loaded with ``ctypes``. A failed build raises with
+nvcc's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["CSRC", "LIB_PATH", "NVCC_FLAGS", "build", "load", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+LIB_PATH = _PKG.parent / "build" / "ldpc_tpu_torch" / "libldpc_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale. Returns
+    nvcc's log (ptxas register and shared-memory use), or "" when the
+    library was already current."""
+    srcs = _sources()
+    newest = max(p.stat().st_mtime for p in srcs)
+    if (not force and LIB_PATH.exists()
+            and LIB_PATH.stat().st_mtime >= newest):
+        return ""
+    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    return proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signatures set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.ldpc_bp_decode.argtypes = [p, p, p, p, p, p,
+                                           i, i, i, i, i, i, p]
+            lib.ldpc_bp_decode.restype = i
+            lib.ldpc_cuda_error_string.argtypes = [i]
+            lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
