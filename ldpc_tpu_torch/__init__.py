@@ -9,4 +9,10 @@ Main path (``python -m ldpc_tpu_torch.bench``): ``codes.io.read_pcm`` ->
 ``codes.gf2.gf2_nullspace`` -> ``channel.awgn.gen_random_codewords`` ->
 ``harness.experiment.run_experiment`` with ``decoders.bp.BPDecoder``, which on
 a CUDA tensor runs the fused decode kernel in ``csrc/bp_decode.cu``.
+
+Sweep app (``python -m ldpc_tpu_torch.apps.benchmark --decoders bp alp``):
+the same harness per (decoder, SNR), writing the reference's ``report.csv``;
+``decoders.alp.ALPDecoder`` re-solves its cut LPs with
+``ops.lp_solver.pdhg_box_lp_fused``, whose chunks run the PDHG kernel in
+``csrc/pdhg_chunk.cu`` on a CUDA tensor.
 """

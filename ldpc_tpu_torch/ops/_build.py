@@ -1,8 +1,9 @@
 """Builds and loads the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` source into one shared library with a
-plain C interface, ``build/ldpc_tpu_torch/libldpc_kernels.so`` under the
-checkout, at first use and again whenever a source is newer than the
+``nvcc`` compiles every ``csrc/*.cu`` source into an object, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, ``build/ldpc_tpu_torch/libldpc_kernels.so`` under
+the checkout, at first use and again whenever a source is newer than the
 library. The library is loaded with ``ctypes``. A failed build raises with
 nvcc's output; nothing falls back.
 """
@@ -15,13 +16,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "LIB_PATH", "NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["ARCH_FLAGS", "CSRC", "LIB_PATH", "NVCC_FLAGS", "build", "load",
+           "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "ldpc_tpu_torch" / "libldpc_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +47,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _raise_failed(cmd: list[str], code: int, log: str) -> None:
+    raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
+
+
 def build(force: bool = False) -> str:
     """Compile the kernels if the library is missing or stale. Returns
     nvcc's log (ptxas register and shared-memory use), or "" when the
@@ -54,15 +61,35 @@ def build(force: bool = False) -> str:
             and LIB_PATH.stat().st_mtime >= newest):
         return ""
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stdout + proc.stderr
+    nvcc, tag = nvcc_path(), os.getpid()
+    objs = [LIB_PATH.with_name(f"{src.stem}.{tag}.o") for src in srcs]
+    jobs = []
+    for src, obj in zip(srcs, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], None
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    try:
+        if failed is not None:
+            _raise_failed(*failed)
+        tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            _raise_failed(cmd, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -72,10 +99,17 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(str(LIB_PATH))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.ldpc_bp_decode.argtypes = [p, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
             lib.ldpc_bp_decode.restype = i
+            lib.ldpc_pdhg_chunk.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                            i, i, i, ll, i, i, p]
+            lib.ldpc_pdhg_chunk.restype = i
+            lib.ldpc_pdhg_chunk_smem_bytes.argtypes = [i, i, i]
+            lib.ldpc_pdhg_chunk_smem_bytes.restype = ll
+            lib.ldpc_smem_optin_limit.argtypes = [i]
+            lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]
             lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
