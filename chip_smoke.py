@@ -34,7 +34,30 @@ printing one line before the next starts:
    0.9659 and launches > 0. Then the same 256 lanes decoded with
    ``lp_backend="kernel"`` and ``"xla"``: success agrees on >= 95 % of
    lanes (the solvers differ in float order and in their first chunk
-   test).
+   test);
+7. the AGC-ALP path's four kernels against their plain twins on the card,
+   at AGC-ALP's shapes (128 lanes, optimalH, capacity 1408 x 280):
+   the GF(2) elimination on an AGC-ALP batch's IPM solution after three
+   cut rounds, a third of the lanes inactive (active lanes bit-identical,
+   inactive lanes passed through); A x and A^T y on row slices of a
+   (128, 1408, 280) buffer at T = 128 and 1408, and the normal matrix at
+   T = 1152 and 1408 with d over 1e-8...1e8 as late in a Newton step
+   (bound: the float32 summation bound T * 2**-23 * sum |terms| per entry,
+   the products being exact for +-1/0 rows); the diagonal-block Cholesky on
+   128 SPD 64 x 64 blocks and one that is not (within 1e-4 of the twin's
+   scale, NaN in that lane only); and the whole blocked factor and solve
+   on the batch's last normal matrix (its residual at most 10x that of
+   ``cholesky_ex`` + ``cholesky_solve`` plus 1e-3 of |r|, the rule of
+   ``tests/test_chol.py``). Times each with CUDA events;
+8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
+   -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
+   capacity 1408, the IPM), CSVs under ``build/``, with the four kernels'
+   launch counts reset before and read after. Gates: FER within |z| < 3.5
+   of the reference's 0.8704, no cut dropped, every kernel launched. Then
+   the same 128 lanes decoded with the kernel backends and with the plain
+   ones (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
+   ``"xla"``): success agrees on >= 95 % of lanes (the IPM's stop tests
+   read float32 errors summed in another order).
 
 Each phase prints its seconds. Then the script prints the kernels' JSON
 line, the card's ``name, power.limit`` line and, last,
@@ -63,6 +86,16 @@ PDHG_STEPS = 64
 PDHG_TIERS = (128, 896)
 X_TOL, Y_TOL, ERR_TOL = 2e-5, 2e-4, 1e-5
 ALP_AGREE_MIN = 0.95
+# phases 7 and 8: the AGC-ALP path (DEFAULT_BATCH["agc-alp"], capacity)
+AGC_LANES = 128
+AGC_SNR = -3.0
+AGC_TRIALS = 512
+AGC_CAP = 1408
+GEMV_TIERS = (128, 1408)
+NORMAL_TIERS = (1152, 1408)
+EPS32 = 2.0 ** -23
+CHOL_TOL = 1e-4
+AGC_AGREE_MIN = 0.95
 
 
 def _time_ms(fn, repeats: int = REPEATS) -> float:
@@ -378,6 +411,311 @@ def phase_alp_path():
     return launches
 
 
+# the AGC-ALP path's kernels: (wrapper module, its launch counter)
+AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
+                "gemv_fwd": ("gemv_kernel", "GEMV_LAUNCHES"),
+                "gemv_tr": ("gemv_kernel", "GEMV_T_LAUNCHES"),
+                "normal_build": ("gemv_kernel", "NORMAL_LAUNCHES"),
+                "chol_diag_inv": ("chol_kernel", "LAUNCHES")}
+
+
+def _agc_counts(reset: bool = False) -> dict:
+    """Each AGC-ALP kernel's launch count; with ``reset``, set them to 0."""
+    import importlib
+    out = {}
+    for name, (module, counter) in AGC_COUNTERS.items():
+        mod = importlib.import_module(f"ldpc_tpu_torch.ops.{module}")
+        if reset:
+            setattr(mod, counter, 0)
+        out[name] = getattr(mod, counter)
+    return out
+
+
+def _bounded(got, want, bound):
+    """Max |got - want| and whether every entry is within ``bound``."""
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= bound).all())
+
+
+def _agc_batch(h, g, rounds):
+    """An AGC-ALP batch (128 optimalH lanes at -3 dB, kernels on) after
+    ``rounds`` cut rounds, and the normal matrix of the first Newton step
+    of its last solve (later steps' matrices grow so ill-conditioned that
+    float32 Cholesky breaks down on some lanes, which the IPM freezes)."""
+    import torch
+    from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
+    from ldpc_tpu_torch.ops import ipm_solver
+    dec = AGCALPDecoder(h, device=torch.device("cuda"))
+    dec.ipm_factor_backend = "blocked"      # what "auto" picks on CUDA
+    st = dec._init_state(_alp_llrs(g, AGC_LANES, 41))
+    seen = []
+    factor = ipm_solver.blocked_cholesky
+
+    def record(m, *args, **kwargs):
+        seen.append(m)
+        return factor(m, *args, **kwargs)
+
+    ipm_solver.blocked_cholesky = record
+    try:
+        for _ in range(rounds):
+            seen.clear()
+            st = dec._round_body(st)
+    finally:
+        ipm_solver.blocked_cholesky = factor
+    return dec, st, seen[0]
+
+
+def phase_agc_kernels_vs_ref():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.ops.chol import blocked_cho_solve, blocked_cholesky
+    from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv
+    from ldpc_tpu_torch.ops.chol_ref import chol_diag_inv_ref, cholesky_nan
+    from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
+    from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
+                                                normal_build)
+    from ldpc_tpu_torch.ops.gemv_ref import gemv_ref, gemv_t_ref, normal_ref
+    from ldpc_tpu_torch.ops.gf2_gauss import (fractional_column_order,
+                                              gf2_eliminate_ordered)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    h = read_pcm(str(bench.MATRIX))
+    g, _ = gf2_nullspace(h)
+    m_rows, n = h.shape
+    rows = {}
+
+    def report(name, label, err, ok, kernel, ref, shape):
+        ms, plain_ms = _time_ms(kernel), _time_ms(ref)
+        print(f"[7 agc-kernels] {name}, {label}: max |diff| {err:.3e}, "
+              f"within bound: {ok}; kernel {ms:.3f} ms, twin {plain_ms:.3f} "
+              f"ms", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its twin ({label})")
+        rows.setdefault(name, []).append({"max_abs_err": err, "ms": ms,
+                                          "plain_ms": plain_ms,
+                                          "shape": shape})
+
+    # the GF(2) elimination on a real IPM solution
+    dec, st, m_real = _agc_batch(h, g, 3)
+    u = st["x"]
+    frac = ((u >= dec.gauss_eps) & (u <= 1.0 - dec.gauss_eps)).sum(dim=1)
+    p = fractional_column_order(u, dec.gauss_eps)
+    idx = p[:, None, :].expand(AGC_LANES, m_rows, n)
+    h_perm = dec.h.expand(AGC_LANES, m_rows, n).gather(2, idx).contiguous()
+    active = torch.arange(AGC_LANES, device=dev) % 3 != 0
+
+    def gauss():
+        return gf2_eliminate(h_perm, active)
+
+    def gauss_ref():
+        return gf2_eliminate_ordered(h_perm)
+
+    got, want = gauss(), gauss_ref()
+    torch.cuda.synchronize()
+    bad = int((got[active] != want[active]).sum())
+    through = torch.equal(got[~active], h_perm[~active])
+    report("gf2_eliminate",
+           f"{AGC_LANES}x{m_rows}x{n} after 3 rounds (fractional columns "
+           f"per lane {frac.float().mean().item():.1f}), {bad} entries "
+           f"differ on {int(active.sum())} active lanes, "
+           f"{int((~active).sum())} inactive lanes passed through: {through}",
+           float(bad), bad == 0 and through, gauss, gauss_ref,
+           f"{AGC_LANES}x{m_rows}x{n} uint8, optimalH, IPM solution after 3 "
+           f"cut rounds at -3 dB, a third of the lanes inactive")
+
+    # A x, A^T y and the normal matrix on row slices of a full buffer
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a_buf = torch.randint(-1, 2, (AGC_LANES, AGC_CAP, n), generator=gen,
+                          device=dev).float()
+    x = torch.rand((AGC_LANES, n), generator=gen, device=dev)
+    for t in GEMV_TIERS:
+        a = a_buf[:, :t]
+        y = torch.rand((AGC_LANES, t), generator=gen, device=dev)
+        shape = (f"{AGC_LANES}x{t}x{n} f32 row slice of a {AGC_LANES}x"
+                 f"{AGC_CAP}x{n} buffer")
+        err, ok = _bounded(batched_gemv(a, x), gemv_ref(a, x),
+                           t * EPS32 * gemv_ref(a.abs(), x))
+        report("gemv_fwd", f"T = {t}", err, ok,
+               lambda: batched_gemv(a, x), lambda: gemv_ref(a, x), shape)
+        err, ok = _bounded(batched_gemv_t(a, y), gemv_t_ref(a, y),
+                           t * EPS32 * gemv_t_ref(a.abs(), y))
+        report("gemv_tr", f"T = {t}", err, ok,
+               lambda: batched_gemv_t(a, y), lambda: gemv_t_ref(a, y), shape)
+    for t in NORMAL_TIERS:
+        a = a_buf[:, :t]
+        d = 10.0 ** (torch.rand((AGC_LANES, t), generator=gen, device=dev)
+                     * 16.0 - 8.0)
+        dxx = 10.0 ** (torch.rand((AGC_LANES, n), generator=gen, device=dev)
+                       * 8.0 - 4.0)
+        err, ok = _bounded(normal_build(a, d, dxx, 1e-6),
+                           normal_ref(a, d, dxx, 1e-6),
+                           t * EPS32 * normal_ref(a.abs(), d, dxx, 1e-6))
+        report("normal_build", f"T = {t}, d over 1e-8..1e8", err, ok,
+               lambda: normal_build(a, d, dxx, 1e-6),
+               lambda: normal_ref(a, d, dxx, 1e-6),
+               f"{AGC_LANES}x{t}x{n} f32 row slice -> {AGC_LANES}x{n}x{n}, "
+               f"d over 1e-8..1e8")
+
+    # the diagonal block: 128 SPD 64 x 64 blocks and one that is not
+    nb = 64
+    z = torch.randn((AGC_LANES + 1, nb, nb), generator=gen, device=dev)
+    blocks = z @ z.transpose(1, 2) / nb + torch.eye(nb, device=dev)
+    blocks[AGC_LANES // 2] = -torch.eye(nb, device=dev)
+    good = torch.ones(AGC_LANES + 1, dtype=torch.bool, device=dev)
+    good[AGC_LANES // 2] = False
+    (lk, vk), (lr, vr) = chol_diag_inv(blocks), chol_diag_inv_ref(blocks)
+    torch.cuda.synchronize()
+    scale = max(float(lr[good].abs().max()), float(vr[good].abs().max()))
+    err = max(float((lk - lr)[good].abs().max()),
+              float((vk - vr)[good].abs().max()))
+    nan_only = (bool(torch.isnan(lk[~good]).any())
+                and bool(lk[good].isfinite().all())
+                and bool(vk[good].isfinite().all()))
+    report("chol_diag_inv",
+           f"{AGC_LANES + 1}x{nb}x{nb}, NaN in the non-SPD lane only: "
+           f"{nan_only}", err, err <= CHOL_TOL * scale and nan_only,
+           lambda: chol_diag_inv(blocks), lambda: chol_diag_inv_ref(blocks),
+           f"{AGC_LANES + 1}x{nb}x{nb} f32 (one lane not SPD)")
+
+    # the whole blocked factor and solve on a real normal matrix
+    r = torch.randn((AGC_LANES, n), generator=gen, device=dev)
+
+    def blocked():
+        return blocked_cho_solve(blocked_cholesky(m_real), r)
+
+    def plain():
+        return torch.cholesky_solve(r[..., None],
+                                    cholesky_nan(m_real))[..., 0]
+
+    xb, xp = blocked(), plain()
+    torch.cuda.synchronize()
+    fin_b, fin_p = xb.isfinite().all(dim=1), xp.isfinite().all(dim=1)
+    both = fin_b & fin_p
+    one_only = int((fin_b != fin_p).sum())
+
+    def resid(v):
+        return float((torch.bmm(m_real[both], v[both][..., None])[..., 0]
+                      - r[both]).abs().max())
+
+    rb, rp = resid(xb), resid(xp)
+    rel = float((xb - xp)[both].abs().max()) / float(xp[both].abs().max())
+    ms, plain_ms = _time_ms(blocked), _time_ms(plain)
+    r_max = float(r.abs().max())
+    diag = m_real.diagonal(dim1=1, dim2=2)
+    print(f"[7 agc-kernels] blocked factor + solve on the batch's normal "
+          f"matrix {tuple(m_real.shape)} (diagonal {float(diag.min()):.3e}"
+          f"..{float(diag.max()):.3e}): residual {rb:.3e} vs cholesky_ex + "
+          f"cholesky_solve {rp:.3e} on the {int(both.sum())} lanes both "
+          f"factor (bound 10x + 1e-3 |r|), max |dx| / max |x| {rel:.3e}; "
+          f"lanes broken down: blocked {int((~fin_b).sum())}, plain "
+          f"{int((~fin_p).sum())}, in one only {one_only} (bound "
+          f"{int((1.0 - AGC_AGREE_MIN) * AGC_LANES)}); blocked {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    if not (rb <= 10.0 * rp + 1e-3 * r_max
+            and one_only <= (1.0 - AGC_AGREE_MIN) * AGC_LANES
+            and int(both.sum()) >= AGC_AGREE_MIN * AGC_LANES):
+        raise AssertionError("blocked factor + solve disagrees with "
+                             "cholesky_ex + cholesky_solve")
+    return rows
+
+
+def phase_agc_path():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps.benchmark import run_sweep
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.config import SweepConfig
+    from ldpc_tpu_torch.decoders import default_batch
+    from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
+    from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
+                                                       Z_BOUND, z_score)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    fer_ref = REF_FER_OPT["AGC-ALP"][SNR_GRID.index(AGC_SNR)]
+    cfg = SweepConfig(matrix=str(bench.MATRIX), decoders=("agc-alp",),
+                      snrs=(AGC_SNR,), trials=AGC_TRIALS,
+                      report="build/chip_smoke_agc.csv",
+                      extended_report="build/chip_smoke_agc_extended.csv")
+    os.makedirs("build", exist_ok=True)
+    _agc_counts(reset=True)
+    t0 = time.perf_counter()
+    rows = run_sweep(cfg, device=dev)
+    secs = time.perf_counter() - t0
+    launches = _agc_counts()
+    res = rows[0][2]
+    z = z_score(res.fer, res.total, fer_ref)
+    print(f"[8 agc path] run_sweep agc-alp {AGC_SNR} dB, {res.total} trials "
+          f"in batches of {default_batch('agc-alp')}: {res.throughput:.2f} "
+          f"cw/s, FER {res.fer:.4f} (z = {z:+.2f} against {fer_ref}), "
+          f"average rounds {res.sum_iterations / res.total:.3f}, dropped "
+          f"{res.sum_dropped}, launches {launches}, {secs:.2f} s with "
+          f"warm-up", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the AGC-ALP path did not launch every kernel: "
+                             f"{launches}")
+    if not abs(z) < Z_BOUND or res.total < AGC_TRIALS:
+        raise AssertionError(f"AGC-ALP FER {res.fer} is {z:+.2f} sigma from "
+                             f"the reference")
+    if res.sum_dropped != 0:
+        raise AssertionError(f"AGC-ALP dropped {res.sum_dropped} cuts")
+    if not 0.0 < res.throughput < float("inf"):
+        raise AssertionError(f"bad throughput {res.throughput}")
+
+    h = read_pcm(str(bench.MATRIX))
+    g, _ = gf2_nullspace(h)
+    llr = _alp_llrs(g, AGC_LANES, 43)
+    out = {}
+    for backend in ("kernel", "plain"):
+        if backend == "kernel":
+            dec = AGCALPDecoder(h, device=dev)
+        else:
+            dec = AGCALPDecoder(h, gauss_backend="xla", device=dev)
+            dec.ipm_matvec_backend = dec.ipm_factor_backend = "xla"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = dec._run_loop(llr)
+        out[backend] = (dec._finish(st), st)
+        torch.cuda.synchronize()
+        out[backend + "_s"] = time.perf_counter() - t0
+    (k, kst), (p, pst) = out["kernel"], out["plain"]
+    same = k.success == p.success
+    agree = same.float().mean().item()
+    both = k.success & p.success
+    bit_diff = int((k.bits[both] != p.bits[both]).any(dim=-1).sum())
+
+    def mean(v):
+        return v.float().mean().item()
+
+    print(f"[8 agc path] {AGC_LANES} lanes, kernel vs plain backends: success "
+          f"agrees on {int(same.sum())} ({agree:.4f}, bound "
+          f"{AGC_AGREE_MIN}); successes {int(k.success.sum())} / "
+          f"{int(p.success.sum())}; lanes successful in both with other bits "
+          f"{bit_diff} of {int(both.sum())}; mean rounds "
+          f"{mean(kst['rounds']):.3f} / {mean(pst['rounds']):.3f}; mean "
+          f"cum_h {mean(kst['cum_h']):.3f} / {mean(pst['cum_h']):.3f}, "
+          f"cum_g {mean(kst['cum_g']):.3f} / {mean(pst['cum_g']):.3f} per "
+          f"lane; dropped {int(kst['dropped'].sum())} / "
+          f"{int(pst['dropped'].sum())}; decode {out['kernel_s']:.3f} s / "
+          f"{out['plain_s']:.3f} s", flush=True)
+    if agree < AGC_AGREE_MIN:
+        raise AssertionError("AGC-ALP kernel and plain backends disagree")
+    return launches
+
+
+def _worst_and_last(rows):
+    """One JSON row from per-shape rows: the largest error, the times and
+    shape of the last (deepest) shape."""
+    last = dict(rows[-1])
+    last["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return last
+
+
 def _timed(name, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -395,6 +733,8 @@ def main() -> int:
     launches = _timed("4 main path", phase_main_path)
     pdhg = _timed("5 pdhg-vs-ref", phase_pdhg_vs_ref)
     pdhg_launches = _timed("6 alp path", phase_alp_path)
+    agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
+    agc_launches = _timed("8 agc path", phase_agc_path)
     head = rows[-3.0]
     kernels = [{
         "name": "bp_decode",
@@ -418,6 +758,24 @@ def main() -> int:
         "plain_ms": pdhg["plain_ms"],
         "shape": pdhg["shape"],
     }]
+    # each new kernel: its largest error over the shapes checked, its time
+    # at the deepest shape checked
+    for name, src, replaces in (
+            ("gf2_eliminate", "gf2_gauss.cu",
+             "ldpc_tpu/ops/pallas/gauss_kernel.py:64"),
+            ("gemv_fwd", "gemv.cu", "ldpc_tpu/ops/pallas/gemv_kernel.py:79"),
+            ("gemv_tr", "gemv.cu", "ldpc_tpu/ops/pallas/gemv_kernel.py:87"),
+            ("normal_build", "normal_build.cu",
+             "ldpc_tpu/ops/pallas/gemv_kernel.py:142"),
+            ("chol_diag_inv", "chol_diag_inv.cu",
+             "ldpc_tpu/ops/pallas/chol_kernel.py:45")):
+        row = _worst_and_last(agc_rows[name])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": agc_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "shape": row["shape"]})
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_stamp(torch.device("cuda", 0)))

@@ -14,5 +14,8 @@ Sweep app (``python -m ldpc_tpu_torch.apps.benchmark --decoders bp alp``):
 the same harness per (decoder, SNR), writing the reference's ``report.csv``;
 ``decoders.alp.ALPDecoder`` re-solves its cut LPs with
 ``ops.lp_solver.pdhg_box_lp_fused``, whose chunks run the PDHG kernel in
-``csrc/pdhg_chunk.cu`` on a CUDA tensor.
+``csrc/pdhg_chunk.cu`` on a CUDA tensor; ``decoders.agc_alp.AGCALPDecoder``
+(``--decoders agc-alp``) solves with the IPM of ``ops.ipm_solver`` (kernels
+``csrc/gemv.cu``, ``csrc/normal_build.cu``, ``csrc/chol_diag_inv.cu``) and
+adds Gaussian-elimination cuts (``csrc/gf2_gauss.cu``).
 """

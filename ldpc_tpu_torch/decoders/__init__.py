@@ -1,10 +1,11 @@
 """Decoder registry and factory (counterpart of
 ``ldpc_tpu/decoders/__init__.py``).
 
-Ported so far: ``bp`` and ``alp``. The other names of the JAX registry raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The decoder
-modules are imported when a decoder is made: ``ops.bp_ref`` imports
-``decoders.base``, so importing ``decoders.bp`` here would be circular.
+Ported so far: ``bp``, ``alp`` and ``agc-alp``. The other names of the JAX
+registry raise ``NotImplementedError`` naming the ROADMAP item that ports
+them. The decoder modules are imported when a decoder is made:
+``ops.bp_ref`` imports ``decoders.base``, so importing ``decoders.bp`` here
+would be circular.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ DEFAULT_BATCH = {"bp": 8192, "qp-admm": 1024, "full-lp": 256,
 _NOT_PORTED = {
     ("qp-admm", "qpadmm", "admm"): "QP-ADMM: ROADMAP item 8",
     ("full-lp", "fulllp"): "Full LP: ROADMAP item 10",
-    ("agc-alp", "agcalp", "agc"): "AGC-ALP: ROADMAP item 12b",
 }
 
 
@@ -49,6 +49,12 @@ def make_decoder(kind: str, h, cfg=None,
         return ALPDecoder(h, max_rounds=cfg.lp_max_rounds,
                           lp_iters=cfg.lp_iters, int_tol=cfg.lp_int_tol,
                           device=device)
+    if kind in ("agc-alp", "agcalp", "agc"):
+        from .agc_alp import AGCALPDecoder
+        return AGCALPDecoder(h, max_rows=cfg.agc_max_rows,
+                             max_rounds=cfg.lp_max_rounds,
+                             lp_iters=cfg.lp_iters, int_tol=cfg.lp_int_tol,
+                             device=device)
     for names, what in _NOT_PORTED.items():
         if kind in names:
             raise NotImplementedError(f"decoder {kind!r} is not ported to "

@@ -18,11 +18,14 @@ membership of the support position closest to 0.5 (first index on ties,
 ``alp.h:29-38,45-61``); the cut  sum_V x - sum_{supp \\ V} x <= |V| - 1  is
 added iff  sum_V (1-u) + sum_{supp \\ V} u < 1 - tol  (``alp.h:63-94``).
 
-JAX's ``while_loop`` and ``lax.switch`` become Python control flow. Each
-round makes three host reads (each waits for the device): the append's
-``nonzero``, the row tier (the largest working lane's cut count, read with
-the number of working lanes), and the loop's ``all(done)``; the solver makes
-one per chunk after its first.
+JAX's ``while_loop``, ``lax.switch`` and ``lax.cond`` become Python
+control flow. Each round makes three host reads (each waits for the device):
+the append's ``nonzero``, the row tier (the largest working lane's cut
+count, read with the number of working lanes), and the loop's ``all(done)``;
+the PDHG solver makes one per chunk after its first, the IPM one per chunk.
+With the Gaussian cut source (AGC-ALP) a round makes one more, whether any
+lane needs the elimination (JAX's ``lax.cond(any(need))``), and, when one
+does, a fourth, the second append's ``nonzero``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from torch import nn
 
 from ..codes.gf2 import is_codeword
+from ..ops.ipm_solver import ipm_box_lp
 from ..ops.lp_solver import pdhg_box_lp, pdhg_box_lp_fused
 from .base import DecodeResult
 
@@ -39,7 +43,7 @@ __all__ = ["ALPDecoder", "alp_cut_candidates", "alp_tables", "append_cuts",
 
 _HASH_SEED = 0x5DEECE66
 _PERT_SEED = 0xC0FFEE
-LP_BACKENDS = ("auto", "xla", "kernel")
+LP_BACKENDS = ("auto", "xla", "kernel", "ipm")
 
 
 def alp_tables(n: int):
@@ -142,12 +146,17 @@ def append_cuts(a_buf, rhs_buf, count, rows, rhs, add,
 class _AdaptiveLPBase(nn.Module):
     """Shared cut-loop driver of the adaptive LP decoders.
 
-    ``lp_backend``: ``"xla"`` is the plain solver :func:`pdhg_box_lp` (the
-    name is the JAX package's, so configurations carry across); ``"kernel"``
-    is the fused path :func:`pdhg_box_lp_fused`, whose chunks run the CUDA
-    kernel on a CUDA tensor and its plain twin on a CPU tensor; ``"auto"`` is
-    ``"kernel"`` on CUDA and ``"xla"`` on the CPU. The IPM backend and the
-    Gaussian-elimination cut source (AGC-ALP) are not ported yet.
+    ``lp_backend``: ``"xla"`` is the plain PDHG solver :func:`pdhg_box_lp`
+    (the name is the JAX package's, so configurations carry across);
+    ``"kernel"`` is the fused path :func:`pdhg_box_lp_fused`, whose chunks
+    run the CUDA kernel on a CUDA tensor and its plain twin on a CPU tensor;
+    ``"auto"`` is ``"kernel"`` on CUDA and ``"xla"`` on the CPU; ``"ipm"`` is
+    the batched interior-point solver :func:`..ops.ipm_solver.ipm_box_lp`,
+    warm-started from the previous round, whose matvec and factor backends
+    are the attributes ``ipm_matvec_backend`` and ``ipm_factor_backend``
+    (``"auto"``: the kernels on CUDA, the plain twins on the CPU).
+    Subclasses with ``use_gauss`` add the Gaussian-elimination cut source
+    (:meth:`_gauss_sup`, AGC-ALP).
     """
 
     use_gauss = False
@@ -168,6 +177,16 @@ class _AdaptiveLPBase(nn.Module):
         self.cut_tol = float(cut_tol)
         self.snap_tol = float(snap_tol)
         self.perturb = float(perturb)
+        # IPM budget and tolerance (lp_backend="ipm"): ~35 Newton steps reach
+        # mu ~ 1e-6; tol is on max(mu, |r_p|, |r_d|) in scaled units; 5-step
+        # chunks (the plateau rule needs two non-improving boundaries, so a
+        # solve pays at least ~3 chunks); warm start from the last round
+        self.ipm_iters = 40
+        self.ipm_tol = 1e-5
+        self.ipm_check_every = 5
+        self.ipm_warm = True
+        self.ipm_matvec_backend = "auto"
+        self.ipm_factor_backend = "auto"
         # adaptive inner-solve budget: chunks of lp_iters up to lp_max_iters,
         # stopping when the worst batch error is below lp_tol; the cut
         # threshold must exceed it, else residual violations on existing
@@ -185,19 +204,19 @@ class _AdaptiveLPBase(nn.Module):
         fine = list(range(128, min(512, self.capacity) + 1, 128))
         coarse = list(range(640, self.capacity, 256))
         self._tiers = tuple(t for t in fine + coarse if t < self.capacity)
-        if lp_backend == "ipm":
-            raise NotImplementedError(
-                "lp_backend='ipm' (the batched IPM) is not ported yet: "
-                "ROADMAP item 12a")
         if lp_backend not in LP_BACKENDS:
             raise ValueError(f"unknown lp_backend {lp_backend!r}; known: "
                              f"{LP_BACKENDS}")
         if lp_backend == "auto":
             lp_backend = "kernel" if device.type == "cuda" else "xla"
         self.lp_backend = lp_backend
-        if not self.cut_tol > self.lp_tol:
-            raise ValueError(f"cut_tol {self.cut_tol} below solver tol "
-                             f"{self.lp_tol}")
+        # the cut threshold must exceed the solver's coordinate noise, else
+        # residual violations on existing cuts read as fresh cuts and lanes
+        # never finish; the binding noise floor is the backend's
+        solver_tol = self.ipm_tol if lp_backend == "ipm" else self.lp_tol
+        if not self.cut_tol > solver_tol:
+            raise ValueError(f"cut_tol {self.cut_tol} below the {lp_backend} "
+                             f"solver's tol {solver_tol}")
         pert_dir, w1, w2 = alp_tables(self.n)
         for name, arr in (("h", h), ("sup", h.astype(bool)),
                           ("pert_dir", pert_dir), ("hash_w1", w1),
@@ -205,9 +224,12 @@ class _AdaptiveLPBase(nn.Module):
             self.register_buffer(name, torch.from_numpy(arr).to(device))
 
     def _gauss_sup(self, x, need=None):
+        """(B, m, n) bool supports of the solution-adapted (eliminated) H,
+        the extra cut source of lanes whose H cuts ran dry; ``need`` (B,)
+        marks the lanes whose rows are used. Only decoders with
+        ``use_gauss`` have one."""
         raise NotImplementedError(
-            "Gaussian-elimination cuts (AGC-ALP) are not ported yet: "
-            "ROADMAP item 12b")
+            f"{type(self).__name__} has no Gaussian-elimination cut source")
 
     def _init_state(self, llrs: torch.Tensor) -> dict:
         """Fresh per-lane cut-loop state."""
@@ -251,8 +273,15 @@ class _AdaptiveLPBase(nn.Module):
         return tiers[sum(r_max > t for t in tiers[:-1])]
 
     def _solve(self, c, a_buf, rhs_buf, x, y, act, t: int):
-        """PDHG solve of min c.x s.t. a_buf[:, :t] x <= rhs_buf[:, :t], box.
-        Returns (x, y[:, :t], err)."""
+        """Solve min c.x s.t. a_buf[:, :t] x <= rhs_buf[:, :t], box, with the
+        decoder's backend. Returns (x, y[:, :t], err)."""
+        if self.lp_backend == "ipm":
+            warm = {"x0": x, "y0": y[:, :t]} if self.ipm_warm else {}
+            return ipm_box_lp(c, a_buf[:, :t], rhs_buf[:, :t],
+                              iters=self.ipm_iters, tol=self.ipm_tol,
+                              check_every=self.ipm_check_every, active=act,
+                              matvec_backend=self.ipm_matvec_backend,
+                              factor_backend=self.ipm_factor_backend, **warm)
         args = (c, a_buf[:, :t], rhs_buf[:, :t], x, y[:, :t],
                 self.lp_max_iters)
         kw = dict(tol=self.lp_tol, check_every=self.lp_iters, active=act,
@@ -282,13 +311,30 @@ class _AdaptiveLPBase(nn.Module):
             hash_state=(state["h1"], state["h2"]),
             cand_hashes=cut_hashes(rows, self.hash_w1, self.hash_w2))
         dropped = state["dropped"] + drop_h
+        n_added, cum_g = n_h, state["cum_g"]
         if self.use_gauss:
-            self._gauss_sup(x_s, eligible & (n_h == 0))
+            # gauss cuts only for lanes that added no H cut this round (the
+            # reference's short-circuit, agc_alp.h:99-101); one host read
+            # skips the elimination when no lane needs it
+            need = eligible & (n_h == 0)
+            if bool(need.any()):
+                g_sup = self._gauss_sup(x_s, need)
+                # gauss_margin relaxes the threshold of the dense gauss rows
+                g_rows, g_rhs, g_add = alp_cut_candidates(
+                    g_sup, x_s, self.cut_tol - self.gauss_margin)
+                a_buf, rhs_buf, count, n_g, _, drop_g, hstate = append_cuts(
+                    a_buf, rhs_buf, count, g_rows, g_rhs,
+                    g_add & need[:, None], hash_state=hstate,
+                    cand_hashes=cut_hashes(g_rows, self.hash_w1,
+                                           self.hash_w2))
+                n_added = n_h + n_g
+                cum_g = cum_g + n_g
+                dropped = dropped + drop_g
         # a lane is finished when its search yields no NEW cut and its LP
         # solve is as good as it will get: converged (error <= lp_tol) or
         # plateaued (error stopped improving across rounds)
         stalled = viol >= self.stall_ratio * viol_prev
-        done = done | ((n_h == 0) & ((viol <= self.lp_tol) | stalled))
+        done = done | ((n_added == 0) & ((viol <= self.lp_tol) | stalled))
         act = ~done
         r_max, n_act = torch.stack([torch.where(done, 0, count).max(),
                                     act.sum(dtype=torch.int32)]).tolist()
@@ -313,7 +359,7 @@ class _AdaptiveLPBase(nn.Module):
                 "count": count, "done": done, "viol": viol,
                 "viol_prev": viol_prev, "dropped": dropped,
                 "rounds": lane_rounds, "cum_h": state["cum_h"] + n_h,
-                "cum_g": state["cum_g"], "h1": hstate[0], "h2": hstate[1]}
+                "cum_g": cum_g, "h1": hstate[0], "h2": hstate[1]}
 
     def _run_loop(self, llrs: torch.Tensor) -> dict:
         if llrs.device != self.h.device:

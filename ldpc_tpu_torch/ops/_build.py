@@ -108,6 +108,21 @@ def load() -> ctypes.CDLL:
             lib.ldpc_pdhg_chunk.restype = i
             lib.ldpc_pdhg_chunk_smem_bytes.argtypes = [i, i, i]
             lib.ldpc_pdhg_chunk_smem_bytes.restype = ll
+            lib.ldpc_gemv_fwd.argtypes = [p, p, p, i, i, i, ll, p]
+            lib.ldpc_gemv_fwd.restype = i
+            lib.ldpc_gemv_tr.argtypes = [p, p, p, i, i, i, ll, p]
+            lib.ldpc_gemv_tr.restype = i
+            lib.ldpc_normal_build.argtypes = [p, p, p, p, i, i, i, ll,
+                                              ctypes.c_float, p]
+            lib.ldpc_normal_build.restype = i
+            lib.ldpc_chol_diag_inv.argtypes = [p, p, p, i, i, p]
+            lib.ldpc_chol_diag_inv.restype = i
+            lib.ldpc_chol_diag_inv_smem_bytes.argtypes = [i]
+            lib.ldpc_chol_diag_inv_smem_bytes.restype = ll
+            lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, p]
+            lib.ldpc_gf2_gauss.restype = i
+            lib.ldpc_gf2_gauss_smem_bytes.argtypes = [i, i]
+            lib.ldpc_gf2_gauss_smem_bytes.restype = ll
             lib.ldpc_smem_optin_limit.argtypes = [i]
             lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]

@@ -240,13 +240,17 @@ def test_noiseless_and_stats(small_h):
 
 
 def test_unported_options_raise(small_h):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ALPDecoder(small_h, lp_backend="ipm")
+    """The IPM backend is ported (its cut threshold is checked against
+    ipm_tol); plain ALP has no Gaussian cut source; unknown backends, a
+    threshold under the solver's tolerance and a foreign device raise."""
+    assert ALPDecoder(small_h, lp_backend="ipm").lp_backend == "ipm"
     with pytest.raises(ValueError, match="lp_backend"):
         ALPDecoder(small_h, lp_backend="pallas")
     with pytest.raises(ValueError, match="cut_tol"):
         ALPDecoder(small_h, cut_tol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="cut_tol"):
+        ALPDecoder(small_h, lp_backend="ipm", cut_tol=1e-5)
+    with pytest.raises(NotImplementedError, match="Gaussian"):
         ALPDecoder(small_h)._gauss_sup(None)
     with pytest.raises(ValueError, match="decoder on"):
         ALPDecoder(small_h).decode_batch(torch.zeros(2, 128, device="meta"))

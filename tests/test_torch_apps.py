@@ -16,6 +16,7 @@ from ldpc_tpu_torch import config
 from ldpc_tpu_torch.apps import benchmark
 from ldpc_tpu_torch.decoders import (DECODER_NAMES, DEFAULT_BATCH,
                                      default_batch, make_decoder)
+from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
 from ldpc_tpu_torch.decoders.alp import ALPDecoder
 from ldpc_tpu_torch.decoders.bp import BPDecoder
 from ldpc_tpu_torch.harness import report
@@ -126,9 +127,12 @@ def test_make_decoder_and_unported_names(small_h):
     alp = make_decoder("alp", small_h, cfg)
     assert isinstance(alp, ALPDecoder) and alp.lp_iters == 32
     assert alp.lp_backend == "xla" and alp.lp_max_iters == 2048
+    for kind in ("agc-alp", "agc"):
+        agc = make_decoder(kind, small_h, cfg)
+        assert isinstance(agc, AGCALPDecoder) and agc.lp_iters == 32
+        assert agc.lp_backend == "ipm" and agc.max_rows == 1000
     for kind, item in (("qp-admm", "item 8"), ("admm", "item 8"),
-                       ("full-lp", "item 10"), ("agc-alp", "item 12"),
-                       ("agc", "item 12")):
+                       ("full-lp", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             make_decoder(kind, small_h)
     with pytest.raises(ValueError, match="unknown decoder"):
