@@ -39,20 +39,27 @@ printing one line before the next starts:
    at AGC-ALP's shapes (128 lanes, optimalH, capacity 1408 x 280):
    the GF(2) elimination on an AGC-ALP batch's IPM solution after three
    cut rounds, a third of the lanes inactive (active lanes bit-identical,
-   inactive lanes passed through); A x and A^T y on row slices of a
-   (128, 1408, 280) buffer at T = 128 and 1408, and the normal matrix at
-   T = 1152 and 1408 with d over 1e-8...1e8 as late in a Newton step
-   (bound: the float32 summation bound T * 2**-23 * sum |terms| per entry,
-   the products being exact for +-1/0 rows); the diagonal-block Cholesky on
-   128 SPD 64 x 64 blocks and one that is not (within 1e-4 of the twin's
-   scale, NaN in that lane only); and the whole blocked factor and solve
-   on the batch's last normal matrix (its residual at most 10x that of
-   ``cholesky_ex`` + ``cholesky_solve`` plus 1e-3 of |r|, the rule of
-   ``tests/test_chol.py``). Times each with CUDA events;
+   inactive lanes passed through); A x and A^T y on the packed int8 copy
+   (``pack_rows``) of row slices of a (128, 1408, 280) buffer at every row
+   tier of the path (T = 128 ... 1408) and on a slice ragged in every
+   dimension (3 x 63 x 283), each call bit-identical to a second one, and
+   the normal matrix at T = 1152 and 1408 with d over 1e-8...1e8 as late in
+   a Newton step (bound: the float32 summation bound, the length of the sum
+   (n for A x, T otherwise) * 2**-23 * sum |terms| per entry, the products
+   being exact for +-1/0 rows); the
+   diagonal-block Cholesky on 128 SPD 64 x 64 blocks and one that is not
+   (within 1e-4 of the twin's scale, NaN in that lane only); and the whole
+   blocked factor and solve on the batch's last normal matrix (its residual
+   at most 10x that of ``cholesky_ex`` + ``cholesky_solve`` plus 1e-3 of
+   |r|, the rule of ``tests/test_chol.py``). Times each with CUDA events;
+   the matvecs, their plain versions, ``bmm`` on the float32 slice and the
+   pack as CUDA graphs of calls (device time), warm and with a cold L2,
+   beside each one's bound, and the host's cost per call apart;
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
-   capacity 1408, the IPM), CSVs under ``build/``, with the four kernels'
-   launch counts reset before and read after. Gates: FER within |z| < 3.5
+   capacity 1408, the IPM), CSVs under ``build/``, with the five kernels'
+   launch counts reset before and read after, and the matvecs' launches
+   per row tier. Gates: FER within |z| < 3.5
    of the reference's 0.8704, no cut dropped, every kernel launched. Then
    the same 128 lanes decoded with the kernel backends and with the plain
    ones (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
@@ -91,9 +98,23 @@ AGC_LANES = 128
 AGC_SNR = -3.0
 AGC_TRIALS = 512
 AGC_CAP = 1408
-GEMV_TIERS = (128, 1408)
+# every row tier of the AGC-ALP path (decoders/alp.py, capacity 1408)
+GEMV_TIERS = (128, 256, 384, 512, 640, 896, 1152, 1408)
+WARM_CALLS = 8      # calls of the warm graph (the same inputs each call)
+GRAPH_REPLAYS = 5
+HOST_CALLS = 200
+COLD_ROUNDS = 2
 NORMAL_TIERS = (1152, 1408)
 EPS32 = 2.0 ** -23
+# the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): HBM3 bytes
+# per second, float32 outside the tensor cores (an FMA counts two); INT32
+# is 64 lanes per SM per clock, 132 SMs at 1.98 GHz
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# special functions (logf, tanhf): 16 per SM per clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+L2_BYTES = 50 * 2 ** 20
 CHOL_TOL = 1e-4
 AGC_AGREE_MIN = 0.95
 
@@ -111,6 +132,57 @@ def _time_ms(fn, repeats: int = REPEATS) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / repeats
+
+
+def _graph_ms(fn, args_list, replays: int = GRAPH_REPLAYS) -> float:
+    """Mean device ms per call of ``fn(*args)`` over ``args_list``, the calls
+    captured once in a CUDA graph (after a warm-up call on a side stream)
+    and the graph replayed: the host's cost of each call is left out, so a
+    kernel of a few microseconds is timed, not its launch (:func:`_host_us`
+    reads that)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args_list[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in args_list:
+            fn(*args)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * len(args_list))
+
+
+def _host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Mean host microseconds to enqueue one call of ``fn`` (the card
+    idle before; what a host-bound path pays per call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def _bound(nbytes, ops, ops_per_s) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes over the HBM rate and the operations over their peak rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def phase_device():
@@ -145,6 +217,36 @@ def _ptxas_usage(log: str) -> str:
     return "; ".join(out)
 
 
+SASS_OPS = ("LDS", "PRMT", "LOP3", "FADD", "FFMA", "I2F", "SYNCS")
+
+
+def _sass_mix(lib: str) -> str:
+    """Static counts of a few opcodes in the matvec kernels' SASS
+    (``cuobjdump -sass``), to read that the int8 unpack compiled to PRMT +
+    FADD: the counts cover the whole kernel, not only its loops."""
+    from collections import Counter
+
+    from ldpc_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return f"not read ({tool} not found)"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d(gemv_[a-z_]*_kernel)", line)
+            name = found.group(1) if found else None
+            if name:
+                counts[name] = Counter()
+        elif name:
+            op = re.search(r"\*/\s+(?:@!?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if op:
+                counts[name][op.group(1)] += 1
+    return "; ".join(f"{k}: " + ", ".join(f"{o} {c[o]}" for o in SASS_OPS)
+                     for k, c in counts.items())
+
+
 def phase_build():
     from ldpc_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -154,6 +256,8 @@ def phase_build():
     print(f"[2 build] {_build.LIB_PATH.name} built in {secs:.2f} s from "
           f"{len(_build._sources())} sources ({_ptxas_usage(log)})",
           flush=True)
+    print(f"[2 build] SASS opcodes of the matvec kernels: "
+          f"{_sass_mix(str(_build.LIB_PATH))}", flush=True)
 
 
 def phase_kernel_vs_ref():
@@ -210,8 +314,13 @@ def phase_kernel_vs_ref():
               f"per {LANES}-lane decode", flush=True)
         if agree < AGREE_MIN or bit_err != 0:
             raise AssertionError(f"kernel disagrees with bp_ref at SNR {snr}")
+        # bytes: the LLRs in, bits, flag and count out; operations: two phi
+        # per edge and iteration run, each a logf and a tanhf
+        edges, iters = int(h.sum()), int(ki.sum())
         rows[snr] = {"max_abs_err": bit_err, "ms": ms, "plain_ms": plain_ms,
-                     "lanes_differ": int((~same).sum())}
+                     "lanes_differ": int((~same).sum()), "library_ms": None,
+                     **_bound(llr.numel() * 5 + LANES * 5,
+                              4 * edges * iters, SFU_OPS_PER_S)}
     return rows
 
 
@@ -272,7 +381,14 @@ def _pdhg_compare(label, args, active, average):
           f"{PDHG_STEPS}-step chunk", flush=True)
     if not (dx <= X_TOL and dy <= Y_TOL and de <= ERR_TOL and through):
         raise AssertionError(f"PDHG kernel disagrees with pdhg_ref ({label})")
-    return {"max_abs_err": max(dx, dy, de), "ms": ms, "plain_ms": plain_ms}
+    # bytes: A once, the vectors in and out; operations: A^T y and
+    # A (2x' - x) per step on the active lanes
+    _, t, n = args[1].shape
+    vec_bytes = 4 * sum(v.numel() for v in args if v is not args[1])
+    return {"max_abs_err": max(dx, dy, de), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            **_bound(4 * args[1].numel() + 2 * vec_bytes,
+                     int(on.sum()) * PDHG_STEPS * 4 * t * n, F32_OPS_PER_S)}
 
 
 def _alp_llrs(g, lanes, seed):
@@ -465,6 +581,125 @@ def _agc_batch(h, g, rounds):
     return dec, st, seen[0]
 
 
+def _copies(t, nbytes):
+    """``t`` and enough copies of it that together they fill twice the L2."""
+    return [t] + [t.clone() for _ in range(-(-2 * L2_BYTES // nbytes))]
+
+
+def _gemv_tiers(a_buf, gen):
+    """Phase 7's matvecs. At every row tier T, on the row slice
+    ``a_buf[:, :T]`` and its packed int8 copy: each kernel held to its plain
+    version on the same copy within the float32 summation bound, and
+    bit-identical on a second call; then timed warm (the same inputs again)
+    and cold (rotating over copies that fill twice the L2) beside its plain
+    version, the one library call on the float32 slice (``bmm``) and the
+    pack. Last, a case ragged in every dimension (B = 3, T = 63, n = 283).
+    Returns per-tier rows for each kernel and the ragged case's errors."""
+    import torch
+    from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
+                                                pack_rows)
+    from ldpc_tpu_torch.ops.gemv_ref import gemv_ref, gemv_t_ref, unpack_rows
+
+    def on_copy(twin, n):
+        """The kernel's plain version: the float32 twin on the unpacked
+        copy."""
+        return lambda m, v: twin(unpack_rows(m, n), v)
+
+    def check(name, kern, twin, a, a8, exact, v, label):
+        """Within terms * 2**-23 * |A||v|, terms the length of each sum:
+        n for A x, T for A^T y."""
+        terms = a.shape[2] if name == "gemv_fwd" else a.shape[1]
+        got, again = kern(a8, v), kern(a8, v)
+        err, ok = _bounded(got, on_copy(twin, a.shape[2])(a8, v),
+                           terms * EPS32 * twin(a.abs(), v))
+        same = torch.equal(got, again)
+        if not (ok and same and bool(exact)):
+            raise AssertionError(f"{name} disagrees with its twin ({label}): "
+                                 f"within bound {ok}, repeat identical "
+                                 f"{same}, packed copy exact {bool(exact)}")
+        return err
+
+    dev = a_buf.device
+    bsz, _, n = a_buf.shape
+    x = torch.rand((bsz, n), generator=gen, device=dev)
+    out = {"gemv_fwd": [], "gemv_tr": []}
+    for t in GEMV_TIERS:
+        a = a_buf[:, :t]
+        y = torch.rand((bsz, t), generator=gen, device=dev)
+        a8, exact = pack_rows(a)
+        # the bytes of A the function needs: one per entry of the slice,
+        # not the copy's pad columns (a layout choice of the kernels)
+        i8_bytes, f32_bytes = bsz * t * n, 4 * bsz * t * n
+        copies8 = _copies(a8, a8.numel())
+        copies32 = _copies(a, f32_bytes)
+        pack = {"pack_ms": _graph_ms(pack_rows, [(a,)] * WARM_CALLS),
+                "pack_cold_ms": _graph_ms(pack_rows,
+                                          [(c,) for c in copies32])}
+        cases = (("gemv_fwd", x, batched_gemv, gemv_ref,
+                  lambda m, v: torch.bmm(m, v[..., None])),
+                 ("gemv_tr", y, lambda m, v: batched_gemv_t(m, v, n),
+                  gemv_t_ref, lambda m, v: torch.bmm(v[:, None], m)))
+        for name, v, kern, twin, lib in cases:
+            err = check(name, kern, twin, a, a8, exact, v, f"T = {t}")
+            plain = on_copy(twin, n)
+            vec_bytes = 4 * (bsz * n + bsz * t)
+            row = {"t": t, "max_abs_err": err, **pack,
+                   **_bound(i8_bytes + vec_bytes, 2 * bsz * t * n,
+                            F32_OPS_PER_S),
+                   "f32_bound_ms": _bound(f32_bytes + vec_bytes,
+                                          2 * bsz * t * n,
+                                          F32_OPS_PER_S)["bound_ms"],
+                   "shape": f"{bsz}x{t}x{n} row slice of a {bsz}x{AGC_CAP}x"
+                            f"{n} buffer, packed to int8 {tuple(a8.shape)}"}
+            for key, fn, m, rot in (("ms", kern, a8, copies8),
+                                    ("plain_ms", plain, a8, copies8),
+                                    ("library_ms", lib, a, copies32)):
+                row[key] = _graph_ms(fn, [(m, v)] * WARM_CALLS)
+                row["cold_" + key] = _graph_ms(fn, [(c, v) for c in rot],
+                                               COLD_ROUNDS)
+            row["frac"] = row["bound_ms"] / row["cold_ms"]
+            row["f32_frac"] = row["f32_bound_ms"] / row["cold_ms"]
+            print(f"[7 agc-kernels] {name} T = {t} (int8 "
+                  f"{i8_bytes / 1e6:.1f} MB): max |diff| {err:.3e} within "
+                  f"bound, repeat bit-identical; warm kernel "
+                  f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bmm "
+                  f"{row['library_ms']:.5f}; cold kernel "
+                  f"{row['cold_ms']:.5f}, plain {row['cold_plain_ms']:.5f}, "
+                  f"bmm {row['cold_library_ms']:.5f}; bound int8 "
+                  f"{row['bound_ms']:.5f} ms (cold fraction "
+                  f"{row['frac']:.3f}), f32 {row['f32_bound_ms']:.5f} ms "
+                  f"({row['f32_frac']:.3f}); pack warm {pack['pack_ms']:.5f} "
+                  f"cold {pack['pack_cold_ms']:.5f} ms", flush=True)
+            out[name].append(row)
+        del copies8, copies32
+    # the host's cost per call, which the host-bound path pays at any T
+    out["host_us"] = {
+        "gemv_fwd": (_host_us(lambda: batched_gemv(a8, x)),
+                     _host_us(lambda: torch.bmm(a, x[..., None]))),
+        "gemv_tr": (_host_us(lambda: batched_gemv_t(a8, y, n)),
+                    _host_us(lambda: torch.bmm(y[:, None], a)))}
+    print("[7 agc-kernels] host us per call (wrapper / bmm): " + ", ".join(
+        f"{k} {w:.1f} / {b:.1f}" for k, (w, b) in out["host_us"].items()),
+        flush=True)
+    # ragged in every dimension: a lane-strided slice, n not a multiple of 16
+    a = torch.randint(-1, 2, (3, 70, 283), generator=gen,
+                      device=dev).float()[:, :63]
+    a8, exact = pack_rows(a)
+    x = torch.rand((3, 283), generator=gen, device=dev)
+    y = torch.rand((3, 63), generator=gen, device=dev)
+    ragged = {"gemv_fwd": check("gemv_fwd", batched_gemv, gemv_ref, a, a8,
+                                exact, x, "ragged"),
+              "gemv_tr": check("gemv_tr",
+                               lambda m, v: batched_gemv_t(m, v, 283),
+                               gemv_t_ref, a, a8, exact, y, "ragged")}
+    print(f"[7 agc-kernels] gemv ragged 3x63x283 (packed {tuple(a8.shape)}): "
+          f"max |diff| fwd {ragged['gemv_fwd']:.3e}, tr "
+          f"{ragged['gemv_tr']:.3e}, within bound, repeat bit-identical",
+          flush=True)
+    out["gemv_ragged"] = ragged
+    return out
+
+
 def phase_agc_kernels_vs_ref():
     import torch
     from ldpc_tpu_torch import bench
@@ -474,9 +709,8 @@ def phase_agc_kernels_vs_ref():
     from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv
     from ldpc_tpu_torch.ops.chol_ref import chol_diag_inv_ref, cholesky_nan
     from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
-    from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
-                                                normal_build)
-    from ldpc_tpu_torch.ops.gemv_ref import gemv_ref, gemv_t_ref, normal_ref
+    from ldpc_tpu_torch.ops.gemv_kernel import normal_build
+    from ldpc_tpu_torch.ops.gemv_ref import normal_ref
     from ldpc_tpu_torch.ops.gf2_gauss import (fractional_column_order,
                                               gf2_eliminate_ordered)
 
@@ -526,25 +760,18 @@ def phase_agc_kernels_vs_ref():
            float(bad), bad == 0 and through, gauss, gauss_ref,
            f"{AGC_LANES}x{m_rows}x{n} uint8, optimalH, IPM solution after 3 "
            f"cut rounds at -3 dB, a third of the lanes inactive")
+    # bytes: H in and out once; operations: one XOR of 32 packed columns per
+    # (pivot, row, word) on the active lanes
+    rows["gf2_eliminate"][-1].update(library_ms=None, **_bound(
+        2 * h_perm.numel() + active.numel(),
+        int(active.sum()) * m_rows * m_rows * -(-n // 32), INT32_OPS_PER_S))
 
-    # A x, A^T y and the normal matrix on row slices of a full buffer
+    # A x and A^T y on the packed copy of row slices of a full buffer at
+    # every tier, the normal matrix on the float32 slices
     gen = torch.Generator(device=dev).manual_seed(13)
     a_buf = torch.randint(-1, 2, (AGC_LANES, AGC_CAP, n), generator=gen,
                           device=dev).float()
-    x = torch.rand((AGC_LANES, n), generator=gen, device=dev)
-    for t in GEMV_TIERS:
-        a = a_buf[:, :t]
-        y = torch.rand((AGC_LANES, t), generator=gen, device=dev)
-        shape = (f"{AGC_LANES}x{t}x{n} f32 row slice of a {AGC_LANES}x"
-                 f"{AGC_CAP}x{n} buffer")
-        err, ok = _bounded(batched_gemv(a, x), gemv_ref(a, x),
-                           t * EPS32 * gemv_ref(a.abs(), x))
-        report("gemv_fwd", f"T = {t}", err, ok,
-               lambda: batched_gemv(a, x), lambda: gemv_ref(a, x), shape)
-        err, ok = _bounded(batched_gemv_t(a, y), gemv_t_ref(a, y),
-                           t * EPS32 * gemv_t_ref(a.abs(), y))
-        report("gemv_tr", f"T = {t}", err, ok,
-               lambda: batched_gemv_t(a, y), lambda: gemv_t_ref(a, y), shape)
+    rows.update(_gemv_tiers(a_buf, gen))
     for t in NORMAL_TIERS:
         a = a_buf[:, :t]
         d = 10.0 ** (torch.rand((AGC_LANES, t), generator=gen, device=dev)
@@ -559,6 +786,16 @@ def phase_agc_kernels_vs_ref():
                lambda: normal_ref(a, d, dxx, 1e-6),
                f"{AGC_LANES}x{t}x{n} f32 row slice -> {AGC_LANES}x{n}x{n}, "
                f"d over 1e-8..1e8")
+        # the one library call for the product, A^T (A d) + diag, with
+        # A d and the diagonal made outside the timed call
+        a_d = a * d[..., None]
+        base = torch.diag_embed(dxx + 1e-6)
+        rows["normal_build"][-1].update(
+            library_ms=_time_ms(lambda: torch.baddbmm(base, a.transpose(1, 2),
+                                                      a_d)),
+            **_bound(4 * (a.numel() + d.numel() + dxx.numel())
+                     + 4 * AGC_LANES * n * n,
+                     AGC_LANES * t * n * (n + 1), F32_OPS_PER_S))
 
     # the diagonal block: 128 SPD 64 x 64 blocks and one that is not
     nb = 64
@@ -580,6 +817,11 @@ def phase_agc_kernels_vs_ref():
            f"{nan_only}", err, err <= CHOL_TOL * scale and nan_only,
            lambda: chol_diag_inv(blocks), lambda: chol_diag_inv_ref(blocks),
            f"{AGC_LANES + 1}x{nb}x{nb} f32 (one lane not SPD)")
+    # bytes: the blocks in, the factor and its inverse out; operations: nb^3/3
+    # for the factor and as many for the triangular inverse, per block
+    rows["chol_diag_inv"][-1].update(library_ms=None, **_bound(
+        3 * 4 * blocks.numel(), (AGC_LANES + 1) * 2 * nb ** 3 / 3,
+        F32_OPS_PER_S))
 
     # the whole blocked factor and solve on a real normal matrix
     r = torch.randn((AGC_LANES, n), generator=gen, device=dev)
@@ -634,6 +876,7 @@ def phase_agc_path():
     from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
     from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
                                                        Z_BOUND, z_score)
+    from ldpc_tpu_torch.ops import gemv_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -644,10 +887,13 @@ def phase_agc_path():
                       extended_report="build/chip_smoke_agc_extended.csv")
     os.makedirs("build", exist_ok=True)
     _agc_counts(reset=True)
+    gemv_kernel.reset_tier_counts()
     t0 = time.perf_counter()
     rows = run_sweep(cfg, device=dev)
     secs = time.perf_counter() - t0
     launches = _agc_counts()
+    tiers = {"gemv_fwd": dict(sorted(gemv_kernel.GEMV_TIER_LAUNCHES.items())),
+             "gemv_tr": dict(sorted(gemv_kernel.GEMV_T_TIER_LAUNCHES.items()))}
     res = rows[0][2]
     z = z_score(res.fer, res.total, fer_ref)
     print(f"[8 agc path] run_sweep agc-alp {AGC_SNR} dB, {res.total} trials "
@@ -656,6 +902,7 @@ def phase_agc_path():
           f"average rounds {res.sum_iterations / res.total:.3f}, dropped "
           f"{res.sum_dropped}, launches {launches}, {secs:.2f} s with "
           f"warm-up", flush=True)
+    print(f"[8 agc path] matvec launches per row tier T: {tiers}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the AGC-ALP path did not launch every kernel: "
                              f"{launches}")
@@ -705,7 +952,7 @@ def phase_agc_path():
           f"{out['plain_s']:.3f} s", flush=True)
     if agree < AGC_AGREE_MIN:
         raise AssertionError("AGC-ALP kernel and plain backends disagree")
-    return launches
+    return launches, tiers
 
 
 def _worst_and_last(rows):
@@ -734,32 +981,27 @@ def main() -> int:
     pdhg = _timed("5 pdhg-vs-ref", phase_pdhg_vs_ref)
     pdhg_launches = _timed("6 alp path", phase_alp_path)
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
-    agc_launches = _timed("8 agc path", phase_agc_path)
+    agc_launches, tiers = _timed("8 agc path", phase_agc_path)
     head = rows[-3.0]
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     kernels = [{
-        "name": "bp_decode",
-        "route": "cuda",
+        "name": "bp_decode", "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/bp_decode.cu",
         "replaces": "ldpc_tpu/ops/pallas/bp_kernel.py:43",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
+        "launches": launches, **{k: head[k] for k in keys},
         "lanes_differ": head["lanes_differ"],
         "shape": f"{LANES}x280 f32 llr, optimalH, {MAX_ITER} it, SNR -3 dB",
     }, {
-        "name": "pdhg_chunk",
-        "route": "cuda",
+        "name": "pdhg_chunk", "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/pdhg_chunk.cu",
         "replaces": "ldpc_tpu/ops/pallas/pdhg_kernel.py:72",
-        "launches": pdhg_launches,
-        "max_abs_err": pdhg["max_abs_err"],
-        "ms": pdhg["ms"],
-        "plain_ms": pdhg["plain_ms"],
+        "launches": pdhg_launches, **{k: pdhg[k] for k in keys},
         "shape": pdhg["shape"],
     }]
-    # each new kernel: its largest error over the shapes checked, its time
-    # at the deepest shape checked
+    # the AGC-ALP kernels: the largest error over the shapes checked; the
+    # times at the deepest shape, for the matvecs at the tier of their worst
+    # fraction of the int8 bound with a cold L2
     for name, src, replaces in (
             ("gf2_eliminate", "gf2_gauss.cu",
              "ldpc_tpu/ops/pallas/gauss_kernel.py:64"),
@@ -769,13 +1011,32 @@ def main() -> int:
              "ldpc_tpu/ops/pallas/gemv_kernel.py:142"),
             ("chol_diag_inv", "chol_diag_inv.cu",
              "ldpc_tpu/ops/pallas/chol_kernel.py:45")):
-        row = _worst_and_last(agc_rows[name])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": agc_launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "shape": row["shape"]})
+        entry = {"name": name, "route": "cuda",
+                 "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
+                 "launches": agc_launches[name]}
+        if name in tiers:
+            per_tier = agc_rows[name]
+            row = min(per_tier, key=lambda r: r["frac"])
+            entry.update(
+                max_abs_err=max([r["max_abs_err"] for r in per_tier]
+                                + [agc_rows["gemv_ragged"][name]]),
+                ms=row["cold_ms"], plain_ms=row["cold_plain_ms"],
+                library_ms=row["cold_library_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                worst_tier=row["t"], worst_fraction=row["frac"],
+                host_us=agc_rows["host_us"][name][0],
+                library_host_us=agc_rows["host_us"][name][1],
+                shape=row["shape"] + ", cold L2, device time (CUDA graph)")
+            # the path's matvec time: launches per tier x cold time per call
+            on_path = sum(tiers[name].get(r["t"], 0) * r["cold_ms"]
+                          for r in per_tier)
+            print(f"[8 agc path] {name}: {sum(tiers[name].values())} "
+                  f"launches, ~{on_path:.3f} ms on the path at phase 7's "
+                  f"cold times per tier", flush=True)
+        else:
+            row = _worst_and_last(agc_rows[name])
+            entry.update({k: row[k] for k in keys}, shape=row["shape"])
+        kernels.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_stamp(torch.device("cuda", 0)))

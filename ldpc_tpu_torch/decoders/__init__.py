@@ -33,7 +33,7 @@ def default_batch(kind: str) -> int:
 
 
 def make_decoder(kind: str, h, cfg=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
     """Build a decoder on ``device`` by registry name from a
     :class:`..config.DecoderConfig` (or its defaults). ``cfg.bp_layout`` is
     accepted and unused: the port's BP has one layout per device."""

@@ -46,7 +46,7 @@ class AGCALPDecoder(_AdaptiveLPBase):
                  cut_tol: float = 3e-4, gauss_eps: float = 1e-8,
                  gauss_margin: float = 0.0, snap_tol: float = 0.0,
                  lp_backend: str = "ipm", gauss_backend: str = "auto",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if gauss_backend not in GAUSS_BACKENDS:
             raise ValueError(f"unknown gauss_backend {gauss_backend!r}; "
                              f"known: {GAUSS_BACKENDS}")

@@ -36,7 +36,7 @@ from torch import nn
 from ..codes.gf2 import is_codeword
 from ..ops.ipm_solver import ipm_box_lp
 from ..ops.lp_solver import pdhg_box_lp, pdhg_box_lp_fused
-from .base import DecodeResult
+from .base import DecodeResult, resolve_device
 
 __all__ = ["ALPDecoder", "alp_cut_candidates", "alp_tables", "append_cuts",
            "cut_hashes"]
@@ -165,9 +165,9 @@ class _AdaptiveLPBase(nn.Module):
                  int_tol: float, cut_tol: float = 1e-3,
                  snap_tol: float = 0.02, perturb: float = 1e-3,
                  lp_backend: str = "auto",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
-        device = torch.device(device)
+        device = resolve_device(device)
         h = np.asarray(h, dtype=np.uint8) % 2
         self.m, self.n = h.shape
         self.max_rows = int(max_rows)
@@ -409,7 +409,7 @@ class ALPDecoder(_AdaptiveLPBase):
     def __init__(self, h, max_rounds: int = 64, lp_iters: int = 64,
                  int_tol: float = 3e-2, max_rows: int | None = None,
                  cut_tol: float = 1e-3, lp_backend: str = "auto",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if max_rows is None:
             max_rows = max(512, 2 * int(np.asarray(h).shape[0]))
         super().__init__(h, max_rows=max_rows, max_rounds=max_rounds,

@@ -20,7 +20,7 @@ from torch import nn
 from ..codes.graph import CodeGraph
 from ..ops import bp_kernel
 from ..ops.bp_ref import bp_decode_ref
-from .base import DecodeResult
+from .base import DecodeResult, resolve_device
 
 __all__ = ["BPDecoder"]
 
@@ -34,8 +34,9 @@ class BPDecoder(nn.Module):
 
     def __init__(self, h, max_iter: int = 100, variant: str = "sumprod",
                  ms_factor: float = 0.75, fixed_iters: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
+        device = resolve_device(device)
         if variant not in ("sumprod", "minsum"):
             raise ValueError(f"unknown BP variant {variant!r}")
         self.name = "BP"

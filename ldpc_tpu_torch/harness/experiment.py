@@ -29,7 +29,7 @@ import torch
 
 from ..channel.awgn import llr_variance, transmit
 from ..codes.gf2 import is_codeword
-from ..decoders.base import Decoder
+from ..decoders.base import Decoder, resolve_device
 
 __all__ = ["COUNTERS", "ExperimentResult", "channel_step", "count_step",
            "make_experiment_step", "run_experiment"]
@@ -132,7 +132,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
-                   batch_size: int = 1024, device: torch.device | str = "cpu",
+                   batch_size: int = 1024, device: torch.device | str = "cuda",
                    warmup: bool = True) -> ExperimentResult:
     """FER estimation over all ``codewords`` (T, n) at one SNR on one device.
 
@@ -141,7 +141,7 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
     ``time_sec`` covers the batch loop only, from a synchronised start to a
     synchronised end.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
     t_total = cw.shape[0]
     step = make_experiment_step(decoder, h, snr, seed, device)

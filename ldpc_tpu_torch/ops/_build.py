@@ -108,10 +108,12 @@ def load() -> ctypes.CDLL:
             lib.ldpc_pdhg_chunk.restype = i
             lib.ldpc_pdhg_chunk_smem_bytes.argtypes = [i, i, i]
             lib.ldpc_pdhg_chunk_smem_bytes.restype = ll
-            lib.ldpc_gemv_fwd.argtypes = [p, p, p, i, i, i, ll, p]
+            lib.ldpc_gemv_fwd.argtypes = [p, p, p, i, i, i, i, p]
             lib.ldpc_gemv_fwd.restype = i
-            lib.ldpc_gemv_tr.argtypes = [p, p, p, i, i, i, ll, p]
+            lib.ldpc_gemv_tr.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.ldpc_gemv_tr.restype = i
+            lib.ldpc_gemv_chunk_rows.argtypes = [i]
+            lib.ldpc_gemv_chunk_rows.restype = i
             lib.ldpc_normal_build.argtypes = [p, p, p, p, i, i, i, ll,
                                               ctypes.c_float, p]
             lib.ldpc_normal_build.restype = i

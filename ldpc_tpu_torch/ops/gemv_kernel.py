@@ -1,36 +1,106 @@
 """Python wrappers of the IPM's matvec kernels (``csrc/gemv.cu``) and of its
-normal-matrix kernel (``csrc/normal_build.cu``).
+normal-matrix kernel (``csrc/normal_build.cu``), and the packed copy of the
+cut rows the matvecs read.
 
 Replace ``ldpc_tpu/ops/pallas/gemv_kernel.py``: ``_fwd_kernel`` and
-``_tr_kernel`` (called by ``batched_gemv`` and ``batched_gemv_t``) and
-``_normal_kernel`` (called by ``normal_build``). Each wrapper picks by the
-device of ``a``: a CPU tensor goes to its plain twin in :mod:`.gemv_ref`, a
-CUDA tensor to the kernel, anything else raises; nothing falls back. On CUDA
-a wrapper checks its inputs, allocates the output and launches on the
-current stream without synchronising.
+``_tr_kernel`` (called by ``batched_gemv`` and ``batched_gemv_t``),
+``_normal_kernel`` (called by ``normal_build``) and ``prepare_gemv``
+(:func:`pack_rows`). Each wrapper picks by the device of ``a``: a CPU tensor
+goes to its plain twin in :mod:`.gemv_ref` (for the matvecs, on the
+unpacked copy), a CUDA tensor to the kernel, anything else raises; nothing
+falls back. On CUDA a wrapper checks its inputs (the matvecs check them on
+the CPU too), allocates the output and launches on the current stream
+without synchronising.
 
-``a`` is the (B, T, n) float32 cut slice as the decoder holds it, possibly a
-row slice ``a_buf[:, :T]`` of a larger per-lane buffer: its rows must be
-contiguous (strides ``(L, n, 1)``, any lane stride ``L``), the contract of
-``ops.pdhg_kernel``. The vectors must be contiguous. The TPU's transposed
-bf16 copy (``prepare_gemv``) was a layout choice of its vector unit and has
-no counterpart here.
+The matvecs read the packed copy :func:`pack_rows` makes once per solve: a
+contiguous (B, T, n_pad) int8 tensor, n_pad = n rounded up to 16, pad
+columns zero, so that every row starts 16-byte aligned for the kernels'
+bulk copies. Cut rows are +-1/0, so one byte is exact; ``pack_rows`` also
+returns a device flag that says so, which the IPM reads with the host read
+it already makes. The TPU's copy was bf16 in a transposed (B, n8, T) layout,
+a choice of its vector unit; int8 moves half of bf16's bytes.
+
+``normal_build`` reads the float32 cut slice as the decoder holds it,
+possibly a row slice ``a_buf[:, :T]`` of a larger per-lane buffer: its rows
+must be contiguous (strides ``(L, n, 1)``, any lane stride ``L``).
 
 ``GEMV_LAUNCHES``, ``GEMV_T_LAUNCHES`` and ``NORMAL_LAUNCHES`` count each
-kernel's launches, so a run can show that its main path went through them.
+kernel's launches, so a run can show that its main path went through them;
+``GEMV_TIER_LAUNCHES`` and ``GEMV_T_TIER_LAUNCHES`` count the matvecs' by row
+count T.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from . import _build
-from .gemv_ref import gemv_ref, gemv_t_ref, normal_ref
+from .gemv_ref import PAD, gemv_ref, gemv_t_ref, normal_ref, unpack_rows
 
 GEMV_LAUNCHES = 0
 GEMV_T_LAUNCHES = 0
 NORMAL_LAUNCHES = 0
+GEMV_TIER_LAUNCHES: Counter = Counter()
+GEMV_T_TIER_LAUNCHES: Counter = Counter()
 
-__all__ = ["batched_gemv", "batched_gemv_t", "normal_build"]
+__all__ = ["batched_gemv", "batched_gemv_t", "normal_build", "pack_rows",
+           "reset_tier_counts"]
+
+_chunk_rows: dict[int, int] = {}
+# per (device, stream): A^T y's per-lane run counts, zeros that the kernel
+# leaves zero, so no call pays a fill
+_counts: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _run_counts(device: torch.device, bsz: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counts = _counts.get(key)
+    if counts is None or counts.numel() < bsz:
+        counts = _counts[key] = torch.zeros(max(bsz, 256), dtype=torch.int32,
+                                            device=device)
+    return counts
+
+
+def reset_tier_counts() -> None:
+    """Set the per-T launch counts of both matvecs to zero."""
+    GEMV_TIER_LAUNCHES.clear()
+    GEMV_T_TIER_LAUNCHES.clear()
+
+
+def pack_rows(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 copy of a (B, T, n) cut slice (any strides) the matvec
+    kernels read: (B, T, n_pad) contiguous, n_pad = n rounded up to 16, pad
+    columns zero; and a 0-d bool tensor on a's device, true when every entry
+    of ``a`` is -1, 0 or 1 (the copy is exact only then). No host read."""
+    if a.dim() != 3:
+        raise ValueError(f"pack_rows: a must be 3-D, got shape "
+                         f"{tuple(a.shape)}")
+    bsz, t, n = a.shape
+    n_pad = -(-n // PAD) * PAD
+    a8 = torch.zeros((bsz, t, n_pad), dtype=torch.int8, device=a.device)
+    view = a8[..., :n]
+    view.copy_(a)
+    ok = ((view == a) & (view.abs() <= 1)).all()
+    return a8, ok
+
+
+def _check_a8(fn: str, a8: torch.Tensor, n: int) -> tuple[int, int, int]:
+    if a8.dtype != torch.int8:
+        raise TypeError(f"{fn}: a must be the int8 copy from pack_rows, got "
+                        f"{a8.dtype}")
+    if a8.dim() != 3:
+        raise ValueError(f"{fn}: a must be 3-D, got shape {tuple(a8.shape)}")
+    bsz, t, n_pad = a8.shape
+    if t < 1 or n < 1:
+        raise ValueError(f"{fn}: empty row slice or columns, a has shape "
+                         f"{tuple(a8.shape)}, n = {n}")
+    if n_pad != -(-n // PAD) * PAD:
+        raise ValueError(f"{fn}: a has {n_pad} columns; pack_rows pads "
+                         f"n = {n} to {-(-n // PAD) * PAD}")
+    if not a8.is_contiguous() or a8.data_ptr() % PAD:
+        raise ValueError(f"{fn}: a must be contiguous and 16-byte aligned")
+    return bsz, t, n_pad
 
 
 def _check_a(fn: str, a: torch.Tensor) -> tuple[int, int, int]:
@@ -83,32 +153,45 @@ def _launch(fn: str, entry, *args) -> None:
 
 
 def batched_gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A x per lane: a (B, T, n) float32, x (B, n) float32 -> (B, T)."""
+    """A x per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`,
+    x (B, n) float32 -> (B, T) float32."""
     global GEMV_LAUNCHES
-    if _device_or_raise("batched_gemv", a):
-        return gemv_ref(a, x)
-    bsz, t, n = _check_a("batched_gemv", a)
+    on_cpu = _device_or_raise("batched_gemv", a)
+    n = x.shape[-1]
+    bsz, t, n_pad = _check_a8("batched_gemv", a, n)
     _check_vec("batched_gemv", "x", x, (bsz, n), a.device)
+    if on_cpu:
+        return gemv_ref(unpack_rows(a, n), x)
     out = torch.empty((bsz, t), dtype=torch.float32, device=a.device)
     if bsz:
-        _launch("batched_gemv", "ldpc_gemv_fwd", a, x, out, bsz, t, n,
-                a.stride(0))
+        _launch("batched_gemv", "ldpc_gemv_fwd", a, x, out, bsz, t, n, n_pad)
         GEMV_LAUNCHES += 1
+        GEMV_TIER_LAUNCHES[t] += 1
     return out
 
 
-def batched_gemv_t(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """A^T y per lane: a (B, T, n) float32, y (B, T) float32 -> (B, n)."""
+def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+    """A^T y per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`
+    of a slice with ``n`` columns, y (B, T) float32 -> (B, n) float32."""
     global GEMV_T_LAUNCHES
-    if _device_or_raise("batched_gemv_t", a):
-        return gemv_t_ref(a, y)
-    bsz, t, n = _check_a("batched_gemv_t", a)
+    on_cpu = _device_or_raise("batched_gemv_t", a)
+    bsz, t, n_pad = _check_a8("batched_gemv_t", a, n)
     _check_vec("batched_gemv_t", "y", y, (bsz, t), a.device)
+    if on_cpu:
+        return gemv_t_ref(unpack_rows(a, n), y)
     out = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
     if bsz:
-        _launch("batched_gemv_t", "ldpc_gemv_tr", a, y, out, bsz, t, n,
-                a.stride(0))
+        rows = _chunk_rows.get(n_pad)
+        if rows is None:
+            rows = _chunk_rows[n_pad] = _build.load().ldpc_gemv_chunk_rows(
+                n_pad)
+        # the kernel splits a lane into at most twice ceil(t / rows) chunks
+        part = torch.empty((bsz, 2 * -(-t // rows), n), dtype=torch.float32,
+                           device=a.device)
+        _launch("batched_gemv_t", "ldpc_gemv_tr", a, y, part, out,
+                _run_counts(a.device, bsz), bsz, t, n, n_pad)
         GEMV_T_LAUNCHES += 1
+        GEMV_T_TIER_LAUNCHES[t] += 1
     return out
 
 

@@ -2,25 +2,34 @@
 (``csrc/gemv.cu``, ``csrc/normal_build.cu``).
 
 What the TPU kernels ``_fwd_kernel``, ``_tr_kernel`` and ``_normal_kernel``
-of ``ldpc_tpu/ops/pallas/gemv_kernel.py`` compute, per lane, on the f32 cut
+of ``ldpc_tpu/ops/pallas/gemv_kernel.py`` compute, per lane, on the cut
 slice ``a`` (B, T, n):
 
 * :func:`gemv_ref`: ``A x`` -> (B, T);
 * :func:`gemv_t_ref`: ``A^T y`` -> (B, n);
 * :func:`normal_ref`: ``M = A^T diag(d) A + diag(dxx) + delta I`` -> (B, n, n).
 
-The TPU stored a transposed bf16 copy of A (``prepare_gemv``), a layout
-choice of its vector unit; here ``a`` is taken as it is, and may be a row
-slice ``a_buf[:, :T]`` of a larger per-lane buffer. The products are
-``torch.bmm`` in float32; the IPM needs full f32 products, so TF32 must be
-off (``ops.ipm_solver`` checks it). The diagonal is added as JAX adds it,
+``a`` is the float32 slice, possibly a row slice ``a_buf[:, :T]`` of a
+larger per-lane buffer. The matvec kernels read the (B, T, n_pad) int8 copy
+that ``gemv_kernel.pack_rows`` makes (n_pad = n rounded up to :data:`PAD`);
+their plain version is the twin on :func:`unpack_rows` of it, the same
+float32 values, so the same products. The products are ``torch.bmm`` in
+float32; the IPM needs full f32 products, so TF32 must be off
+(``ops.ipm_solver`` checks it). The diagonal is added as JAX adds it,
 ``(m_ii + dxx_i) + delta``.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gemv_ref", "gemv_t_ref", "normal_ref"]
+__all__ = ["PAD", "gemv_ref", "gemv_t_ref", "normal_ref", "unpack_rows"]
+
+PAD = 16   # the packed copy's columns are a multiple of this
+
+
+def unpack_rows(a8: torch.Tensor, n: int) -> torch.Tensor:
+    """The (B, T, n) float32 slice of a (B, T, n_pad) int8 packed copy."""
+    return a8[..., :n].to(torch.float32)
 
 
 def gemv_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ and solves it twice (predictor and corrector). Backends:
 * ``matvec_backend``: ``"xla"`` (the JAX package's name, kept so
   configurations carry across) runs the plain twins of :mod:`.gemv_ref`;
   ``"kernel"`` runs :mod:`.gemv_kernel` (``csrc/gemv.cu`` and
-  ``csrc/normal_build.cu`` on a CUDA tensor, the same twins on a CPU tensor);
+  ``csrc/normal_build.cu`` on a CUDA tensor, the same twins on a CPU tensor).
+  Its matvecs read an int8 copy of the rows made once per solve
+  (``pack_rows``), exact for entries in {-1, 0, 1}: the solve raises
+  ``ValueError`` on any other entry, read with the first chunk's host read;
 * ``factor_backend``: ``"xla"`` is ``torch.linalg.cholesky_ex`` +
   ``cholesky_solve`` with the NaN rule of :func:`.chol_ref.cholesky_nan`;
   ``"blocked"`` is :mod:`.chol` (its diagonal step ``csrc/chol_diag_inv.cu``
@@ -35,8 +38,9 @@ multiplication by a reciprocal in torch, which rounds differently from JAX).
 
 JAX's ``fori_loop`` of ``lax.cond`` chunks is a Python loop of at most
 ``ceil(iters / check_every)`` chunks (8 at AGC-ALP's 40/5). Before each chunk
-the host reads one flag, whether any lane still has to step: one device sync
-per chunk, at most 8 per solve. A chunk that does not step leaves the state
+the host reads one flag, whether any lane still has to step (with the
+packed copy's guard before the first chunk): one device sync per chunk, at
+most 8 per solve. A chunk that does not step leaves the state
 unchanged, so the flag stays false and leaving the loop at the first false
 one is exact.
 """
@@ -46,7 +50,8 @@ import torch
 
 from .chol import blocked_cho_solve, blocked_cholesky
 from .chol_ref import cholesky_nan
-from .gemv_kernel import batched_gemv, batched_gemv_t, normal_build
+from .gemv_kernel import (batched_gemv, batched_gemv_t, normal_build,
+                          pack_rows)
 from .gemv_ref import gemv_ref, gemv_t_ref, normal_ref
 
 __all__ = ["FACTOR_BACKENDS", "MATVEC_BACKENDS", "ipm_box_lp"]
@@ -116,13 +121,16 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     f32 = torch.float32
     c = c.to(f32)
     a = a_rows.to(f32)
+    guard = None
 
     if matvec_backend == "kernel":
+        a8, guard = pack_rows(a)
+
         def mv(v):
-            return batched_gemv(a, v.contiguous())
+            return batched_gemv(a8, v.contiguous())
 
         def mvt(v):
-            return batched_gemv_t(a, v.contiguous())
+            return batched_gemv_t(a8, v.contiguous(), n)
 
         def normal(d, dxx):
             return normal_build(a, d.contiguous(), dxx.contiguous(), delta)
@@ -278,7 +286,14 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
         stall_cnt = torch.where(latched, stall_cnt,
                                 torch.where(improving, 0, stall_cnt + 1))
         best_err = torch.minimum(best_err, err)
-        if not bool(((err > tol) & (stall_cnt < 2)).any()):
+        go = ((err > tol) & (stall_cnt < 2)).any()
+        if guard is not None:       # one host read for both flags
+            go, exact = torch.stack((go, guard)).tolist()
+            guard = None
+            if not exact:
+                raise ValueError("ipm_box_lp: the kernel matvecs need cut "
+                                 "rows with entries in {-1, 0, 1}")
+        if not go:
             break
         for _ in range(check_every):
             state = newton(state)

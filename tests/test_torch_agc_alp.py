@@ -38,6 +38,7 @@ except ImportError:
     jnp = None
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
+CPU = torch.device("cpu")
 COUNTERS = ("rounds", "cum_h", "cum_g", "dropped", "count")
 
 
@@ -68,7 +69,7 @@ def test_whole_decoder_matches_jax():
     jdec = jagc.AGCALPDecoder(h, **kw)
     jst = jax.jit(jdec._run_loop)(jnp.asarray(llrs))
     want = jdec._finish(jst)
-    dec = AGCALPDecoder(h, **kw)
+    dec = AGCALPDecoder(h, **kw, device=CPU)
     assert dec.lp_backend == "ipm" and jdec.lp_backend == "ipm"
     st = dec._run_loop(torch.from_numpy(llrs))
     got = dec._finish(st)
@@ -94,14 +95,14 @@ def test_agc_alp_noiseless_and_noisy(small_h):
     rng = np.random.default_rng(4)
     cw = (rng.integers(0, 2, (16, g.shape[0])) @ g) % 2
     clean = ((1.0 - 2.0 * cw) * 6.0).astype(np.float32)
-    dec = AGCALPDecoder(small_h, lp_iters=800, max_rounds=20)
+    dec = AGCALPDecoder(small_h, lp_iters=800, max_rounds=20, device=CPU)
     res = dec.decode_batch(torch.from_numpy(clean))
     assert bool(res.success.all())
     np.testing.assert_array_equal(res.bits.numpy(), cw)
     llrs, _ = _llrs(small_h, 16, 2.0, seed=7)
     res_agc = dec.decode_batch(torch.from_numpy(llrs))
-    res_alp = ALPDecoder(small_h, lp_iters=800, max_rounds=20).decode_batch(
-        torch.from_numpy(llrs))
+    res_alp = ALPDecoder(small_h, lp_iters=800, max_rounds=20,
+                         device=CPU).decode_batch(torch.from_numpy(llrs))
     ok = res_agc.success
     valid = is_codeword(torch.from_numpy(small_h), res_agc.bits)
     assert bool(valid[ok].all())
@@ -114,7 +115,7 @@ def test_agc_alp_noiseless_and_noisy(small_h):
 
 @pytest.mark.parametrize("kind", ["agc-alp", "agcalp", "agc", "AGC-ALP"])
 def test_registry_gives_jax_defaults(kind, small_h):
-    dec = make_decoder(kind, small_h)
+    dec = make_decoder(kind, small_h, device=CPU)
     jdec = jmake_decoder(kind, small_h)
     assert isinstance(dec, AGCALPDecoder) and dec.name == "AGC-ALP"
     for attr in ("max_rows", "max_rounds", "lp_iters", "int_tol", "cut_tol",
@@ -124,7 +125,7 @@ def test_registry_gives_jax_defaults(kind, small_h):
                  "lp_max_iters", "stall_ratio", "perturb", "name"):
         assert getattr(dec, attr) == getattr(jdec, attr), attr
     cfg = DecoderConfig(agc_max_rows=200, lp_max_rounds=9)
-    small = make_decoder(kind, small_h, cfg)
+    small = make_decoder(kind, small_h, cfg, device=CPU)
     assert (small.max_rows, small.max_rounds) == (200, 9)
 
 
@@ -132,7 +133,7 @@ def test_constants_at_the_reference_configuration():
     """optimalH at JAX's defaults: capacity 1408 cut rows per lane, row
     tiers 128/256/384/512/640/896/1152, the IPM's 40/1e-5/5/warm."""
     h = _h("optimalH")
-    dec = AGCALPDecoder(h)
+    dec = AGCALPDecoder(h, device=CPU)
     jdec = jagc.AGCALPDecoder(h)
     assert dec.capacity == jdec.capacity == 1408
     assert dec._tiers == jdec._tiers == (128, 256, 384, 512, 640, 896, 1152)
@@ -150,15 +151,15 @@ def test_cut_tol_checked_against_the_backend_in_use(cls, small_h):
     204``). AGC-ALP's own default, 3e-4 = lp_tol, is legal with the IPM."""
     port = ALPDecoder if cls == "ALP" else AGCALPDecoder
     jax_cls = jalp.ALPDecoder if cls == "ALP" else jagc.AGCALPDecoder
-    dec = port(small_h, lp_backend="ipm", cut_tol=3e-4)
+    dec = port(small_h, lp_backend="ipm", cut_tol=3e-4, device=CPU)
     assert dec.lp_backend == "ipm" and dec.cut_tol == 3e-4
     jax_cls(small_h, lp_backend="ipm", cut_tol=3e-4)
     with pytest.raises(ValueError, match="cut_tol"):
-        port(small_h, lp_backend="ipm", cut_tol=1e-5)
+        port(small_h, lp_backend="ipm", cut_tol=1e-5, device=CPU)
     with pytest.raises(AssertionError, match="cut_tol"):
         jax_cls(small_h, lp_backend="ipm", cut_tol=1e-5)
     with pytest.raises(ValueError, match="cut_tol"):
-        port(small_h, lp_backend="xla", cut_tol=3e-4)
+        port(small_h, lp_backend="xla", cut_tol=3e-4, device=CPU)
     with pytest.raises(AssertionError, match="cut_tol"):
         jax_cls(small_h, lp_backend="xla", cut_tol=3e-4)
 
@@ -170,12 +171,12 @@ def test_alp_with_ipm_backend_decodes(small_h):
     rng = np.random.default_rng(9)
     cw = (rng.integers(0, 2, (4, g.shape[0])) @ g) % 2
     clean = ((1.0 - 2.0 * cw) * 6.0).astype(np.float32)
-    res = ALPDecoder(small_h, lp_backend="ipm").decode_batch(
+    res = ALPDecoder(small_h, lp_backend="ipm", device=CPU).decode_batch(
         torch.from_numpy(clean))
     assert bool(res.success.all()) and bool((res.iterations == 1).all())
     np.testing.assert_array_equal(res.bits.numpy(), cw)
     with pytest.raises(ValueError, match="gauss_backend"):
-        AGCALPDecoder(small_h, gauss_backend="pallas")
+        AGCALPDecoder(small_h, gauss_backend="pallas", device=CPU)
 
 
 def test_sweep_runs_agc_alp_on_cpu(tmp_path):

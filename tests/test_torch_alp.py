@@ -30,6 +30,7 @@ except ImportError:
     jnp = None
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -64,7 +65,7 @@ def _eq(got, want):
 def test_tables_capacity_and_tiers_match_jax(name, tiny_h):
     h = tiny_h if name == "tiny" else _h(name)
     jdec = jalp.ALPDecoder(h, lp_backend="xla")
-    dec = ALPDecoder(h)
+    dec = ALPDecoder(h, device=CPU)
     pert_dir, w1, w2 = alp_tables(h.shape[1])
     np.testing.assert_array_equal(pert_dir, np.asarray(jdec._pert_dir))
     np.testing.assert_array_equal(w1, np.asarray(jdec._hash_w[0]))
@@ -184,7 +185,7 @@ def _whole_decoder(backend, jbackend, seed):
     kw = dict(max_rounds=8, lp_iters=200, max_rows=96)
     want = jalp.ALPDecoder(h, lp_backend=jbackend, **kw).decode_batch(
         jnp.asarray(llrs))
-    got = ALPDecoder(h, lp_backend=backend, **kw).decode_batch(
+    got = ALPDecoder(h, lp_backend=backend, **kw, device=CPU).decode_batch(
         torch.from_numpy(llrs))
     return got, want
 
@@ -213,7 +214,8 @@ def test_alp_matches_exact_oracle(tiny_h, snr):
     bits where both certify (``tests/test_alp.py:91-107``)."""
     from test_alp import scalar_alp
     llrs, _ = _llrs(tiny_h, 24, snr, seed=int(snr) + 40)
-    dec = ALPDecoder(tiny_h, lp_iters=2000, max_rounds=30, int_tol=2e-2)
+    dec = ALPDecoder(tiny_h, lp_iters=2000, max_rounds=30, int_tol=2e-2,
+                     device=CPU)
     res = dec.decode_batch(torch.from_numpy(llrs))
     agree = 0
     for t in range(24):
@@ -228,7 +230,7 @@ def test_alp_matches_exact_oracle(tiny_h, snr):
 def test_noiseless_and_stats(small_h):
     llrs, cw = _llrs(small_h, 8, 0.0, seed=2)
     clean = np.where(cw == 0, 6.0, -6.0).astype(np.float32)
-    dec = ALPDecoder(small_h, lp_iters=800)
+    dec = ALPDecoder(small_h, lp_iters=800, device=CPU)
     res = dec.decode_batch(torch.from_numpy(clean))
     assert bool(res.success.all()) and (res.iterations == 1).all()
     np.testing.assert_array_equal(res.bits.numpy(), cw)
@@ -243,17 +245,19 @@ def test_unported_options_raise(small_h):
     """The IPM backend is ported (its cut threshold is checked against
     ipm_tol); plain ALP has no Gaussian cut source; unknown backends, a
     threshold under the solver's tolerance and a foreign device raise."""
-    assert ALPDecoder(small_h, lp_backend="ipm").lp_backend == "ipm"
+    assert ALPDecoder(small_h, lp_backend="ipm",
+                      device=CPU).lp_backend == "ipm"
     with pytest.raises(ValueError, match="lp_backend"):
-        ALPDecoder(small_h, lp_backend="pallas")
+        ALPDecoder(small_h, lp_backend="pallas", device=CPU)
     with pytest.raises(ValueError, match="cut_tol"):
-        ALPDecoder(small_h, cut_tol=1e-4)
+        ALPDecoder(small_h, cut_tol=1e-4, device=CPU)
     with pytest.raises(ValueError, match="cut_tol"):
-        ALPDecoder(small_h, lp_backend="ipm", cut_tol=1e-5)
+        ALPDecoder(small_h, lp_backend="ipm", cut_tol=1e-5, device=CPU)
     with pytest.raises(NotImplementedError, match="Gaussian"):
-        ALPDecoder(small_h)._gauss_sup(None)
+        ALPDecoder(small_h, device=CPU)._gauss_sup(None)
     with pytest.raises(ValueError, match="decoder on"):
-        ALPDecoder(small_h).decode_batch(torch.zeros(2, 128, device="meta"))
+        ALPDecoder(small_h, device=CPU).decode_batch(
+            torch.zeros(2, 128, device="meta"))
 
 
 @pytest.fixture
@@ -279,6 +283,6 @@ def test_alp_on_card_kernel_vs_xla(cuda_device):
     assert same.float().mean().item() >= 0.95
     both = res.success & ref.success
     assert torch.equal(res.bits[both], ref.bits[both])
-    cpu = ALPDecoder(h, lp_backend="xla").decode_batch(torch.from_numpy(
-        llrs))
+    cpu = ALPDecoder(h, lp_backend="xla", device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     assert (cpu.success == ref.success.cpu()).float().mean().item() >= 0.95

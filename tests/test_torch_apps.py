@@ -3,6 +3,7 @@ package: the same command lines parse to the same values, the same counters
 write the same CSV bytes, and the sweep runs BP and ALP on the CPU."""
 import csv
 import dataclasses
+import inspect
 import os
 
 import pytest
@@ -17,13 +18,14 @@ from ldpc_tpu_torch.apps import benchmark
 from ldpc_tpu_torch.decoders import (DECODER_NAMES, DEFAULT_BATCH,
                                      default_batch, make_decoder)
 from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
-from ldpc_tpu_torch.decoders.alp import ALPDecoder
+from ldpc_tpu_torch.decoders.alp import ALPDecoder, _AdaptiveLPBase
 from ldpc_tpu_torch.decoders.bp import BPDecoder
 from ldpc_tpu_torch.harness import report
-from ldpc_tpu_torch.harness.experiment import ExperimentResult
+from ldpc_tpu_torch.harness.experiment import ExperimentResult, run_experiment
 from ldpc_tpu_torch.ops import pdhg_kernel
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -122,21 +124,21 @@ def test_sweep_runs_bp_and_alp_on_cpu(tmp_path, capsys):
 
 def test_make_decoder_and_unported_names(small_h):
     cfg = config.DecoderConfig(bp_max_iter=7, lp_iters=32)
-    bp = make_decoder("BP", small_h, cfg)
+    bp = make_decoder("BP", small_h, cfg, device=CPU)
     assert isinstance(bp, BPDecoder) and bp.max_iter == 7
-    alp = make_decoder("alp", small_h, cfg)
+    alp = make_decoder("alp", small_h, cfg, device=CPU)
     assert isinstance(alp, ALPDecoder) and alp.lp_iters == 32
     assert alp.lp_backend == "xla" and alp.lp_max_iters == 2048
     for kind in ("agc-alp", "agc"):
-        agc = make_decoder(kind, small_h, cfg)
+        agc = make_decoder(kind, small_h, cfg, device=CPU)
         assert isinstance(agc, AGCALPDecoder) and agc.lp_iters == 32
         assert agc.lp_backend == "ipm" and agc.max_rows == 1000
     for kind, item in (("qp-admm", "item 8"), ("admm", "item 8"),
                        ("full-lp", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
-            make_decoder(kind, small_h)
+            make_decoder(kind, small_h, device=CPU)
     with pytest.raises(ValueError, match="unknown decoder"):
-        make_decoder("nope", small_h)
+        make_decoder("nope", small_h, device=CPU)
 
 
 def test_sweep_raises_on_unported_decoder(tmp_path):
@@ -146,3 +148,35 @@ def test_sweep_raises_on_unported_decoder(tmp_path):
                              extended_report=None)
     with pytest.raises(NotImplementedError, match="QP-ADMM"):
         benchmark.run_sweep(cfg, device="cpu", log=lambda *a, **k: None)
+
+
+ENTRY_POINTS = {"BPDecoder": BPDecoder, "ALPDecoder": ALPDecoder,
+                "AGCALPDecoder": AGCALPDecoder,
+                "_AdaptiveLPBase": _AdaptiveLPBase,
+                "make_decoder": make_decoder,
+                "run_experiment": run_experiment}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """The library's entry points run on the card unless the caller asks
+    for the CPU, as the JAX package runs on its default accelerator."""
+    param = inspect.signature(ENTRY_POINTS[name]).parameters["device"]
+    assert param.default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["BPDecoder", "ALPDecoder", "AGCALPDecoder",
+                                  "make_decoder", "run_experiment"])
+def test_default_device_fails_loudly_without_a_card(name, small_h,
+                                                    monkeypatch):
+    """With no card visible the default does not carry on on the CPU."""
+    cpu_dec = BPDecoder(small_h, max_iter=5, device=CPU)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {"BPDecoder": lambda: BPDecoder(small_h),
+             "ALPDecoder": lambda: ALPDecoder(small_h),
+             "AGCALPDecoder": lambda: AGCALPDecoder(small_h),
+             "make_decoder": lambda: make_decoder("bp", small_h),
+             "run_experiment": lambda: run_experiment(
+                 cpu_dec, small_h, torch.zeros((4, cpu_dec.n)), 1.0, 1)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[name]()

@@ -30,6 +30,7 @@ except ImportError:
     jnp = None
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +79,8 @@ def test_bp_ref_matches_jax(name, lanes, snr, layout):
     h = _h(name)
     llrs, _ = _llrs(h, lanes, snr, seed=int(10 * snr) + lanes)
     ref = _jax_decoder(h, layout, max_iter=30).decode_batch(jnp.asarray(llrs))
-    res = BPDecoder(h, max_iter=30).decode_batch(torch.from_numpy(llrs))
+    res = BPDecoder(h, max_iter=30, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     assert res.bits.dtype == torch.uint8 and res.success.dtype == torch.bool
     assert res.iterations.dtype == torch.int32
     _assert_same_decode(res, ref.bits, ref.success, ref.iterations)
@@ -89,7 +91,8 @@ def test_bp_ref_matches_jax(name, lanes, snr, layout):
 def test_bp_ref_matches_scalar_oracle(tiny_h):
     from test_bp import scalar_bp_reference
     llrs, _ = _llrs(tiny_h, 32, 2.0, seed=7)
-    res = BPDecoder(tiny_h, max_iter=20).decode_batch(torch.from_numpy(llrs))
+    res = BPDecoder(tiny_h, max_iter=20, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     for t in range(32):
         bits, ok, iters = scalar_bp_reference(
             tiny_h, llrs[t].astype(np.float64), 20)
@@ -123,7 +126,8 @@ def test_variants_match_jax_edge(small_h, variant, fixed):
     kw = dict(max_iter=25, variant=variant, fixed_iters=fixed)
     ref = JBPDecoder(small_h, layout="edge", **kw).decode_batch(
         jnp.asarray(llrs))
-    res = BPDecoder(small_h, **kw).decode_batch(torch.from_numpy(llrs))
+    res = BPDecoder(small_h, **kw, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     _assert_same_decode(res, ref.bits, ref.success, ref.iterations)
 
 
@@ -131,10 +135,12 @@ def test_decoder_from_jax_graph_arrays(opt_h):
     jdec = JBPDecoder(opt_h, layout="edge", max_iter=30)
     graph = CodeGraph.from_arrays(jdec.graph.__dict__)
     llrs, _ = _llrs(opt_h, 128, -2.0, seed=5)
-    res = BPDecoder(graph, max_iter=30).decode_batch(torch.from_numpy(llrs))
+    res = BPDecoder(graph, max_iter=30, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     ref = jdec.decode_batch(jnp.asarray(llrs))
     _assert_same_decode(res, ref.bits, ref.success, ref.iterations)
-    direct = BPDecoder(opt_h, max_iter=30).decode_batch(torch.from_numpy(llrs))
+    direct = BPDecoder(opt_h, max_iter=30, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     for a, b in zip(res[:3], direct[:3]):
         assert torch.equal(a, b)
 
@@ -151,23 +157,25 @@ def test_bp_ref_matches_pallas_kernel_interpreted(small_h, monkeypatch):
     dec = make_bp_pallas_decoder(small_h, max_iter=15, tile_b=64,
                                  mm_dtype=jnp.float32)
     bits, done, iters = dec(jnp.asarray(llrs))
-    res = BPDecoder(small_h, max_iter=15).decode_batch(torch.from_numpy(llrs))
+    res = BPDecoder(small_h, max_iter=15, device=CPU).decode_batch(
+        torch.from_numpy(llrs))
     _assert_same_decode(res, bits, np.asarray(done)[:, 0] > 0,
                         np.asarray(iters)[:, 0])
 
 
 def test_bp_ref_edge_cases(small_h):
     g = CodeGraph.from_h(small_h)
-    dec = BPDecoder(g, max_iter=0)
+    dec = BPDecoder(g, max_iter=0, device=CPU)
     llrs, _ = _llrs(small_h, 8, 0.0, seed=1)
     res = dec.decode_batch(torch.from_numpy(llrs))
     np.testing.assert_array_equal(res.bits.numpy(),
                                   (llrs <= 0).astype(np.uint8))
     assert not res.success.any() and (res.iterations == 0).all()
-    empty = BPDecoder(g, max_iter=5).decode_batch(torch.zeros(0, g.n))
+    empty = BPDecoder(g, max_iter=5, device=CPU).decode_batch(
+        torch.zeros(0, g.n))
     assert empty.bits.shape == (0, g.n) and empty.success.shape == (0,)
     with pytest.raises(ValueError):
-        BPDecoder(small_h, variant="bogus")
+        BPDecoder(small_h, variant="bogus", device=CPU)
 
 
 @pytest.fixture

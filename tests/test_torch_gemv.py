@@ -4,11 +4,15 @@ JAX package's ``"xla"`` einsums at HIGHEST precision.
 Inputs are signed cut rows (+-1/0) made with numpy from a seed, and Newton
 weights d spanning 1e-8...1e8 as late in a solve. With such rows every
 product is exact in float32 (+-d or 0): only the order of the sums differs,
-so the bound is the float32 summation bound ``T * 2**-23 * sum |terms|``
-per entry. ``normal_build`` is held to the einsum, not to JAX's
-``"pallas-interpret"`` path, which drops two of its three bf16 planes of d.
-The CUDA kernels are checked against the twins on the card (marked ``gpu``;
-``python -m pytest tests/test_torch_gemv.py -m gpu --noconftest``).
+so the bound is a float32 summation bound ``k * 2**-23 * sum |terms|`` per
+entry (k = T against JAX; on the card k is the length of each sum, n for
+A x and T for A^T y and the normal matrix). ``normal_build`` is held to the
+einsum, not to JAX's ``"pallas-interpret"`` path, which drops two of its
+three bf16 planes of d. The matvec kernels read the int8 copy ``pack_rows``
+makes; their plain version is the twin on the unpacked copy, equal to the
+float32 slice bit for bit. The CUDA kernels are checked against the twins
+on the card (marked ``gpu``; ``python -m pytest tests/test_torch_gemv.py -m
+gpu --noconftest``).
 """
 import numpy as np
 import pytest
@@ -16,8 +20,9 @@ import torch
 
 from ldpc_tpu_torch.ops import gemv_kernel
 from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
-                                            normal_build)
-from ldpc_tpu_torch.ops.gemv_ref import gemv_ref, gemv_t_ref, normal_ref
+                                            normal_build, pack_rows)
+from ldpc_tpu_torch.ops.gemv_ref import (gemv_ref, gemv_t_ref, normal_ref,
+                                         unpack_rows)
 
 try:  # the card's host has no JAX; only the gpu cases run there
     import jax
@@ -99,22 +104,69 @@ def test_twins_match_jax_highest_einsums(bsz, cap, t, n):
 def test_wrappers_run_the_twins_on_cpu():
     a_buf, x, y, d, dxx = _inputs(2, 256, 128, 40, seed=1)
     a = torch.from_numpy(a_buf)[:, :128]
+    a8, ok = pack_rows(a)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     dt, dxxt = torch.from_numpy(d), torch.from_numpy(dxx)
     before = (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES,
               gemv_kernel.NORMAL_LAUNCHES)
-    assert torch.equal(batched_gemv(a, xt), gemv_ref(a, xt))
-    assert torch.equal(batched_gemv_t(a, yt), gemv_t_ref(a, yt))
+    assert bool(ok)
+    assert torch.equal(batched_gemv(a8, xt), gemv_ref(a, xt))
+    assert torch.equal(batched_gemv_t(a8, yt, 40), gemv_t_ref(a, yt))
     assert torch.equal(normal_build(a, dt, dxxt, DELTA),
                        normal_ref(a, dt, dxxt, DELTA))
     assert (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES,
             gemv_kernel.NORMAL_LAUNCHES) == before
     meta = torch.zeros((2, 8, 4), device="meta")
     for fn, args in ((batched_gemv, (meta, meta[:, 0])),
-                     (batched_gemv_t, (meta, meta[..., 0])),
+                     (batched_gemv_t, (meta, meta[..., 0], 4)),
                      (normal_build, (meta, meta[..., 0], meta[:, 0], DELTA))):
         with pytest.raises(ValueError, match="no implementation"):
             fn(*args)
+
+
+@pytest.mark.parametrize("n", [128, 280, 283, 640])
+def test_pack_rows_is_exact_and_padded(n):
+    """A lane-strided row slice of +-1/0 rows: the copy is contiguous int8
+    with n rounded up to 16 columns, equal to the slice on its first n
+    columns and zero on the pad, and flagged exact."""
+    a_buf, *_ = _inputs(3, 200, 160, n, seed=n)
+    a = torch.from_numpy(a_buf)[:, :160]
+    assert not a.is_contiguous()
+    a8, ok = pack_rows(a)
+    n_pad = -(-n // 16) * 16
+    assert a8.dtype == torch.int8 and a8.shape == (3, 160, n_pad)
+    assert a8.is_contiguous() and ok.dim() == 0 and bool(ok)
+    assert torch.equal(a8[..., :n].to(torch.float32), a)
+    assert not bool(a8[..., n:].any())
+    assert torch.equal(unpack_rows(a8, n), a)
+
+
+@pytest.mark.parametrize("n", [128, 280, 283, 640])
+def test_twins_on_the_packed_copy_equal_f32_bmm(n):
+    """Bit for bit: the plain versions of the kernels (the twins on the
+    unpacked copy, which the wrappers run on the CPU) see the same float32
+    values and call the same bmm. The wrappers take only the packed copy."""
+    a_buf, x, y, *_ = _inputs(3, 200, 160, n, seed=2 * n)
+    a = torch.from_numpy(a_buf)[:, :160]
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    a8, _ = pack_rows(a)
+    want_ax = torch.bmm(a, xt[..., None])[..., 0]
+    want_aty = torch.bmm(yt[:, None], a)[:, 0]
+    assert torch.equal(gemv_ref(unpack_rows(a8, n), xt), want_ax)
+    assert torch.equal(gemv_t_ref(unpack_rows(a8, n), yt), want_aty)
+    assert torch.equal(batched_gemv(a8, xt), want_ax)
+    assert torch.equal(batched_gemv_t(a8, yt, n), want_aty)
+    with pytest.raises(TypeError, match="int8 copy"):
+        batched_gemv(a.contiguous(), xt)
+
+
+@pytest.mark.parametrize("bad", [0.5, 2.0, -2.0, float("nan")])
+def test_pack_rows_flags_entries_outside_the_set(bad):
+    a = torch.zeros((2, 5, 30))
+    a[1, 3, 7] = bad
+    assert not bool(pack_rows(a)[1])
+    a[1, 3, 7] = -1.0
+    assert bool(pack_rows(a)[1])
 
 
 @pytest.fixture
@@ -128,26 +180,63 @@ def cuda_device():
 @pytest.mark.parametrize("t", [128, 1408])
 def test_kernels_match_twins_on_card(cuda_device, t):
     """AGC-ALP's shapes: 128 lanes, n = 280, a row slice of the
-    (128, 1408, 280) buffer. Same bound as the CPU case: exact products,
-    float32 sums in another order."""
+    (128, 1408, 280) buffer, the matvecs on its packed copy. Same bound as
+    CPU case: exact products, float32 sums of n (A x) or T terms in another
+    order."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cap, n = 1408, 280
     a_buf, x, y, d, dxx = _inputs(128, cap, t, n, seed=t)
     a = torch.from_numpy(a_buf).to(cuda_device)[:, :t]
     xt, yt, dt, dxxt = (torch.from_numpy(v).to(cuda_device)
                         for v in (x, y, d, dxx))
+    a8, ok = pack_rows(a)
     before = gemv_kernel.GEMV_LAUNCHES
-    got = (batched_gemv(a, xt), batched_gemv_t(a, yt),
+    got = (batched_gemv(a8, xt), batched_gemv_t(a8, yt, n),
            normal_build(a, dt, dxxt, DELTA))
     want = (gemv_ref(a, xt), gemv_t_ref(a, yt),
             normal_ref(a, dt, dxxt, DELTA))
     torch.cuda.synchronize()
+    assert bool(ok)
     assert gemv_kernel.GEMV_LAUNCHES == before + 1
     abs_a = a.abs()
-    bounds = (t * EPS32 * gemv_ref(abs_a, xt.abs()),
+    bounds = (n * EPS32 * gemv_ref(abs_a, xt.abs()),
               t * EPS32 * gemv_t_ref(abs_a, yt),
               t * EPS32 * (normal_ref(abs_a, dt, dxxt, DELTA)))
     for g, w, b in zip(got, want, bounds):
         assert g.shape == w.shape
         assert bool(((g - w).abs() <= b + 1e-30).all())
     assert torch.equal(got[2], got[2].transpose(1, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,bsz,n", [(1, 1, 280), (1, 200, 283),
+                                     (63, 3, 283), (63, 1, 280),
+                                     (128, 128, 280), (128, 200, 283),
+                                     (1408, 128, 280), (1408, 200, 283)])
+def test_packed_matvecs_any_shape_on_card(cuda_device, t, bsz, n):
+    """Ragged T, B and n (a lane-strided slice, packed): within the float32
+    summation bound of the twins, the same bits on a second call, and one
+    launch counted per call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(t + bsz + n)
+    a_buf = rng.integers(-1, 2, (bsz, t + 5, n)).astype(np.float32)
+    x = rng.uniform(size=(bsz, n)).astype(np.float32)
+    y = np.abs(rng.normal(size=(bsz, t))).astype(np.float32)
+    a = torch.from_numpy(a_buf).to(cuda_device)[:, :t]
+    xt, yt = (torch.from_numpy(v).to(cuda_device) for v in (x, y))
+    a8, ok = pack_rows(a)
+    before = (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES)
+    fwd = [batched_gemv(a8, xt) for _ in range(2)]
+    tr = [batched_gemv_t(a8, yt, n) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bool(ok)
+    assert (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(fwd[0], fwd[1]) and torch.equal(tr[0], tr[1])
+    # A^T y's per-lane run counts are left zero for the next call
+    assert not any(bool(c.any()) for c in gemv_kernel._counts.values())
+    abs_a = a.abs()
+    assert bool(((fwd[0] - gemv_ref(a, xt)).abs()
+                 <= n * EPS32 * gemv_ref(abs_a, xt) + 1e-30).all())
+    assert bool(((tr[0] - gemv_t_ref(a, yt)).abs()
+                 <= t * EPS32 * gemv_t_ref(abs_a, yt) + 1e-30).all())

@@ -30,6 +30,7 @@ from ldpc_tpu_torch.harness.reference_data import Z_BOUND, z_score
 from ldpc_tpu_torch.ops import _build, bp_kernel
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -76,8 +77,9 @@ def test_whole_slice_counters_match_jax(name, snr, lanes):
         return jbpsk(codewords) + sigma * noise
 
     y = np.array(received(jnp.asarray(cw), jnp.asarray(idx)))
-    got = count_step(BPDecoder(h, max_iter=30), torch.from_numpy(h),
-                     torch.from_numpy(cw), torch.from_numpy(y), snr)
+    got = count_step(BPDecoder(h, max_iter=30, device=CPU),
+                     torch.from_numpy(h), torch.from_numpy(cw),
+                     torch.from_numpy(y), snr)
     assert got.dtype == torch.int64
     assert dict(zip(COUNTERS, got.tolist())) == \
         {k: int(v) for k, v in want.items()}
@@ -85,19 +87,22 @@ def test_whole_slice_counters_match_jax(name, snr, lanes):
 
 def test_determinism_across_batch_sizes(small_h):
     cw = _codewords(small_h, 64, seed=1)
-    dec = BPDecoder(small_h, max_iter=15)
-    r1 = run_experiment(dec, small_h, cw, snr=1.0, seed=1, batch_size=64)
-    r2 = run_experiment(dec, small_h, cw, snr=1.0, seed=1, batch_size=16)
+    dec = BPDecoder(small_h, max_iter=15, device=CPU)
+    r1 = run_experiment(dec, small_h, cw, snr=1.0, seed=1, batch_size=64,
+                        device=CPU)
+    r2 = run_experiment(dec, small_h, cw, snr=1.0, seed=1, batch_size=16,
+                        device=CPU)
     assert _counters(r1) == _counters(r2)
     assert r1.total == 64 and r1.time_sec > 0
 
 
 def test_remainder_batch(small_h):
     cw = _codewords(small_h, 50, seed=3)          # not divisible by 32
-    dec = BPDecoder(small_h, max_iter=10)
-    res = run_experiment(dec, small_h, cw, snr=2.0, seed=3, batch_size=32)
+    dec = BPDecoder(small_h, max_iter=10, device=CPU)
+    res = run_experiment(dec, small_h, cw, snr=2.0, seed=3, batch_size=32,
+                         device=CPU)
     whole = run_experiment(dec, small_h, cw, snr=2.0, seed=3, batch_size=50,
-                           warmup=False)
+                           warmup=False, device=CPU)
     assert res.total == 50
     assert _counters(res) == _counters(whole)
     assert res.correct + res.pseudo <= res.total
@@ -108,7 +113,7 @@ def test_remainder_batch(small_h):
 def test_step_is_channel_then_count(small_h):
     cw = torch.from_numpy(_codewords(small_h, 32, seed=4))
     idx = torch.arange(32)
-    dec = BPDecoder(small_h, max_iter=10)
+    dec = BPDecoder(small_h, max_iter=10, device=CPU)
     out = make_experiment_step(dec, small_h, 0.5, 8, "cpu")(cw, idx)
     y = channel_step(cw, idx, 0.5, 8)
     assert torch.equal(out, count_step(dec, torch.from_numpy(small_h), cw, y,
@@ -124,8 +129,9 @@ def test_fer_matches_jax_run(small_h):
     ref = jrun_experiment(JBPDecoder(small_h, max_iter=20, layout="edge"),
                           small_h, cw, snr, jax.random.PRNGKey(9),
                           batch_size=256)
-    res = run_experiment(BPDecoder(small_h, max_iter=20), small_h, cw, snr,
-                         seed=9, batch_size=256)
+    res = run_experiment(BPDecoder(small_h, max_iter=20, device=CPU),
+                         small_h, cw, snr, seed=9, batch_size=256,
+                         device=CPU)
     assert 0.05 < ref.fer < 0.95
     assert abs(z_score(res.fer, trials, ref.fer, trials)) < Z_BOUND
     assert abs(res.sum_iterations / trials - ref.sum_iterations / trials) \
@@ -153,7 +159,8 @@ def test_port_imports_no_jax():
         "from ldpc_tpu_torch.codes.io import read_pcm\n"
         "from ldpc_tpu_torch.decoders.bp import BPDecoder\n"
         "h = read_pcm('data/H.txt')\n"
-        "res = BPDecoder(h, max_iter=5).decode_batch(torch.ones(4, 128))\n"
+        "res = BPDecoder(h, max_iter=5, device='cpu').decode_batch(\n"
+        "    torch.ones(4, 128))\n"
         "assert bool(res.success.all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax',"
         " 'jaxlib', 'ldpc_tpu')]\n"
@@ -165,7 +172,7 @@ def test_port_imports_no_jax():
 
 
 def test_kernel_wrapper_raises_on_cpu_tensor(small_h):
-    dec = BPDecoder(small_h)
+    dec = BPDecoder(small_h, device=CPU)
     before = bp_kernel.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         bp_kernel.bp_decode(torch.zeros(4, dec.n), dec.row_col,

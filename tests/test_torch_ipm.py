@@ -8,7 +8,9 @@ for generic c) agrees to 1e-4 and the certificate to 1e-6. The duals of
 these degenerate LPs are not unique, so they are held by the dual objective
 (5e-4 relative) and by feasibility, not coordinate by coordinate. The port's
 kernel/blocked backends (their twins on the CPU) are held to its own
-xla/xla path with ``tests/test_ipm.py``'s 1e-3 objective bound. The CUDA
+xla/xla path with ``tests/test_ipm.py``'s 1e-3 objective bound, and bit for
+bit where only the matvecs differ (their twins read the packed int8 copy of
+the rows, converted back to the same float32 values). The CUDA
 path is checked on the card (marked ``gpu``; ``python -m pytest
 tests/test_torch_ipm.py -m gpu --noconftest``).
 """
@@ -160,6 +162,39 @@ def test_kernel_backends_match_xla_on_cpu(matvec, factor):
     ox, ok = (c * xx.numpy()).sum(1), (c * xk.numpy()).sum(1)
     np.testing.assert_allclose(ok, ox, atol=1e-3)
     assert (ek.numpy() < 1e-2).all() and (ex.numpy() < 1e-2).all()
+    if factor == "xla":     # the packed matvecs' twins are the xla products
+        assert torch.equal(xk, xx) and torch.equal(ek, ex)
+
+
+@pytest.mark.parametrize("seed,dense", [(7, False), (8, True)])
+def test_kernel_matvecs_equal_xla_bit_for_bit_on_cpu(seed, dense):
+    """On the CPU the kernel matvec path runs the twins on the packed int8
+    copy, which give the float32 bmm's bits, so the whole solve (x, y, err)
+    equals the xla path's bit for bit, on a lane-strided row slice."""
+    a, b, c = _batch(seed, dense=dense)
+    buf = np.zeros((a.shape[0], a.shape[1] + 8, a.shape[2]), np.float32)
+    buf[:, :a.shape[1]] = a
+    a_t = torch.from_numpy(buf)[:, :a.shape[1]]
+    ct, bt = _t(c, b)
+    got = ipm_box_lp(ct, a_t, bt, iters=40, matvec_backend="kernel",
+                     factor_backend="xla")
+    want = ipm_box_lp(ct, a_t, bt, iters=40, matvec_backend="xla",
+                      factor_backend="xla")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bad", [0.5, 2.0])
+def test_kernel_matvecs_refuse_rows_outside_the_set(bad):
+    """The packed copy is exact only for entries in {-1, 0, 1}: the kernel
+    path raises on any other (read with the first chunk's host read); the
+    xla path, which reads the float32 rows, solves as before."""
+    a, b, c = _batch(5, bsz=3)
+    a[1, 2, 4] = bad
+    with pytest.raises(ValueError, match=r"\{-1, 0, 1\}"):
+        ipm_box_lp(*_t(c, a, b), iters=10, matvec_backend="kernel")
+    x, _, _ = ipm_box_lp(*_t(c, a, b), iters=10, matvec_backend="xla")
+    assert bool(torch.isfinite(x).all())
 
 
 def test_ipm_refuses_tf32_and_unknown_backends():
