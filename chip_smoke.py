@@ -21,17 +21,22 @@ printing one line before the next starts:
    reference's 0.4860 (10,000 trials);
 5. PDHG chunk kernel vs its plain twin ``ops.pdhg_ref`` on the card: random
    signed-row LPs shaped like ``tests/test_pallas_pdhg.py``'s (256 lanes,
-   n = 280, T = 128 and 896, 64 steps, ``average`` off and on, a third of
-   the lanes inactive), and the real cut buffers of an ALP batch (256
+   n = 280, every row tier of the ALP path, T = 128 ... 896, 64 steps,
+   ``average`` off and on, a third of the lanes inactive, each a row slice
+   of a deeper buffer), and the real cut buffers of an ALP batch (256
    optimalH lanes at -3 dB) after its third round. Bounds: the JAX
    package's own between its kernel and XLA, |dx| <= 2e-5, |dy| <= 2e-4,
    |d err| <= 1e-5 (float32 sum order only; neither side uses fast math),
-   and inactive lanes bit-identical. Times each with CUDA events;
+   inactive lanes bit-identical, a second call bit-identical, no lane
+   flagged; then a slice with entries outside {-1, 0, 1} must be flagged
+   in exactly its lanes. Prints each tier's layout (blocks per lane, row
+   groups, threads, shared memory). Times each with CUDA events;
 6. ALP path at full width: ``apps.benchmark.run_sweep`` with decoders
    ``alp``, -3 dB, 2,048 trials (batch 256, optimalH, 896 cut rows per
    lane), CSVs under ``build/``, with the PDHG kernel's launch count reset
-   before and read after. Gates: FER within |z| < 3.5 of the reference's
-   0.9659 and launches > 0. Then the same 256 lanes decoded with
+   before and read after, and its launches per row tier. Gates: FER within
+   |z| < 3.5 of the reference's 0.9659 and launches > 0. Then the same 256
+   lanes decoded with
    ``lp_backend="kernel"`` and ``"xla"``: success agrees on >= 95 % of
    lanes (the solvers differ in float order and in their first chunk
    test);
@@ -43,10 +48,12 @@ printing one line before the next starts:
    (``pack_rows``) of row slices of a (128, 1408, 280) buffer at every row
    tier of the path (T = 128 ... 1408) and on a slice ragged in every
    dimension (3 x 63 x 283), each call bit-identical to a second one, and
-   the normal matrix at T = 1152 and 1408 with d over 1e-8...1e8 as late in
-   a Newton step (bound: the float32 summation bound, the length of the sum
-   (n for A x, T otherwise) * 2**-23 * sum |terms| per entry, the products
-   being exact for +-1/0 rows); the
+   the normal matrix on the same packed copy at T = 128, 512, 1152 and 1408
+   and on the ragged slice, with d over 1e-8...1e8 as late in a Newton
+   step, M exactly symmetric and a second call bit-identical (bound: the
+   float32 summation bound, the length of the sum (n for A x, T otherwise)
+   * 2**-23 * sum |terms| per entry, the products being exact for +-1/0
+   rows and the kernel's three bf16 planes of d); the
    diagonal-block Cholesky on 128 SPD 64 x 64 blocks and one that is not
    (within 1e-4 of the twin's scale, NaN in that lane only); and the whole
    blocked factor and solve on the batch's last normal matrix (its residual
@@ -54,12 +61,13 @@ printing one line before the next starts:
    |r|, the rule of ``tests/test_chol.py``). Times each with CUDA events;
    the matvecs, their plain versions, ``bmm`` on the float32 slice and the
    pack as CUDA graphs of calls (device time), warm and with a cold L2,
-   beside each one's bound, and the host's cost per call apart;
+   beside each one's bound, and the host's cost per call apart; the normal
+   matrix the same way beside ``baddbmm`` on the float32 slice;
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
    capacity 1408, the IPM), CSVs under ``build/``, with the five kernels'
-   launch counts reset before and read after, and the matvecs' launches
-   per row tier. Gates: FER within |z| < 3.5
+   launch counts reset before and read after, and the matvecs' and the
+   normal matrix's launches per row tier. Gates: FER within |z| < 3.5
    of the reference's 0.8704, no cut dropped, every kernel launched. Then
    the same 128 lanes decoded with the kernel backends and with the plain
    ones (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
@@ -90,7 +98,8 @@ ALP_LANES = 256
 ALP_SNR = -3.0
 ALP_TRIALS = 2048
 PDHG_STEPS = 64
-PDHG_TIERS = (128, 896)
+# every row tier of the ALP path (decoders/alp.py, capacity 896)
+PDHG_TIERS = (128, 256, 384, 512, 640, 896)
 X_TOL, Y_TOL, ERR_TOL = 2e-5, 2e-4, 1e-5
 ALP_AGREE_MIN = 0.95
 # phases 7 and 8: the AGC-ALP path (DEFAULT_BATCH["agc-alp"], capacity)
@@ -104,13 +113,15 @@ WARM_CALLS = 8      # calls of the warm graph (the same inputs each call)
 GRAPH_REPLAYS = 5
 HOST_CALLS = 200
 COLD_ROUNDS = 2
-NORMAL_TIERS = (1152, 1408)
+NORMAL_TIERS = (128, 512, 1152, 1408)
 EPS32 = 2.0 ** -23
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): HBM3 bytes
-# per second, float32 outside the tensor cores (an FMA counts two); INT32
-# is 64 lanes per SM per clock, 132 SMs at 1.98 GHz
+# per second, float32 outside the tensor cores (an FMA counts two), dense
+# bf16 on the tensor cores; INT32 is 64 lanes per SM per clock, 132 SMs at
+# 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # special functions (logf, tanhf): 16 per SM per clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
@@ -207,23 +218,27 @@ def _ptxas_usage(log: str) -> str:
     out, name = [], None
     for line in log.splitlines():
         found = re.search(r"entry function '\w*?([a-z][a-z_]*_kernel)"
-                          r"(ILb([01])E)?", line)
+                          r"(I(?:Lb[01]E)+E)?", line)
         if found:
             name = found.group(1) + (
                 "" if found.group(2) is None else
-                "<true>" if found.group(3) == "1" else "<false>")
+                "<" + ",".join(re.findall(r"Lb([01])E", found.group(2)))
+                + ">")
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return "; ".join(out)
 
 
-SASS_OPS = ("LDS", "PRMT", "LOP3", "FADD", "FFMA", "I2F", "SYNCS")
+SASS_OPS = ("LDS", "LDSM", "PRMT", "LOP3", "FADD", "FFMA", "HMUL2", "HMMA",
+            "I2F", "SYNCS")
 
 
 def _sass_mix(lib: str) -> str:
-    """Static counts of a few opcodes in the matvec kernels' SASS
-    (``cuobjdump -sass``), to read that the int8 unpack compiled to PRMT +
-    FADD: the counts cover the whole kernel, not only its loops."""
+    """Static counts of a few opcodes in the SASS of the kernels that read
+    packed int8 rows (``cuobjdump -sass``), to read that the int8 unpack
+    compiled to PRMT + FADD and that the normal matrix runs on the tensor
+    cores (HMMA, fed by LDSM): the counts cover the whole kernel, not only
+    its loops."""
     from collections import Counter
 
     from ldpc_tpu_torch.ops import _build
@@ -235,8 +250,11 @@ def _sass_mix(lib: str) -> str:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"\d(gemv_[a-z_]*_kernel)", line)
+            found = re.search(r"\d((?:gemv_[a-z_]*|normal_build|pdhg_chunk)"
+                              r"_kernel)(ILb([01])ELb([01])E)?", line)
             name = found.group(1) if found else None
+            if name and found.group(2):
+                name += f"<{found.group(3)},{found.group(4)}>"
             if name:
                 counts[name] = Counter()
         elif name:
@@ -256,7 +274,7 @@ def phase_build():
     print(f"[2 build] {_build.LIB_PATH.name} built in {secs:.2f} s from "
           f"{len(_build._sources())} sources ({_ptxas_usage(log)})",
           flush=True)
-    print(f"[2 build] SASS opcodes of the matvec kernels: "
+    print(f"[2 build] SASS opcodes of the packed-row kernels: "
           f"{_sass_mix(str(_build.LIB_PATH))}", flush=True)
 
 
@@ -350,7 +368,8 @@ def phase_main_path():
 
 def _pdhg_compare(label, args, active, average):
     """One chunk through the kernel and through the twin on the same
-    inputs: checks the bounds, times both, returns a row for the JSON."""
+    inputs: checks the bounds, that a second call gives the same bits and
+    that no lane is flagged, times both, returns a row for the JSON."""
     import torch
     from ldpc_tpu_torch.ops import pdhg_kernel
     from ldpc_tpu_torch.ops.pdhg_ref import pdhg_chunk_ref
@@ -363,7 +382,7 @@ def _pdhg_compare(label, args, active, average):
         return pdhg_chunk_ref(*args, PDHG_STEPS, active=active,
                               average=average)
 
-    (xk, yk, ek), (xr, yr, er) = kernel(), ref()
+    (xk, yk, ek, flag), again, (xr, yr, er) = kernel(), kernel(), ref()
     torch.cuda.synchronize()
     x0, y0 = args[5], args[6]
     on = active
@@ -373,22 +392,53 @@ def _pdhg_compare(label, args, active, average):
     off = ~on
     through = (torch.equal(xk[off], x0[off]) and torch.equal(yk[off], y0[off])
                and bool((ek[off] == 0).all()))
+    same = all(torch.equal(u, v) for u, v in zip((xk, yk, ek, flag), again))
+    flagged = int(flag.sum())
     ms, plain_ms = _time_ms(kernel), _time_ms(ref)
     print(f"[5 pdhg-vs-ref] {label}: |dx| {dx:.3e} (bound {X_TOL}), |dy| "
           f"{dy:.3e} ({Y_TOL}), |d err| {de:.3e} ({ERR_TOL}); "
-          f"{int(off.sum())} inactive lanes bit-identical: {through}; "
-          f"kernel {ms:.3f} ms, pdhg_ref {plain_ms:.3f} ms per "
-          f"{PDHG_STEPS}-step chunk", flush=True)
-    if not (dx <= X_TOL and dy <= Y_TOL and de <= ERR_TOL and through):
+          f"{int(off.sum())} inactive lanes bit-identical: {through}; repeat "
+          f"bit-identical: {same}; lanes flagged {flagged}; kernel "
+          f"{ms:.3f} ms, pdhg_ref {plain_ms:.3f} ms per {PDHG_STEPS}-step "
+          f"chunk", flush=True)
+    if not (dx <= X_TOL and dy <= Y_TOL and de <= ERR_TOL and through
+            and same and flagged == 0):
         raise AssertionError(f"PDHG kernel disagrees with pdhg_ref ({label})")
     # bytes: A once, the vectors in and out; operations: A^T y and
     # A (2x' - x) per step on the active lanes
     _, t, n = args[1].shape
     vec_bytes = 4 * sum(v.numel() for v in args if v is not args[1])
-    return {"max_abs_err": max(dx, dy, de), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,
+    return {"t": t, "average": average, "max_abs_err": max(dx, dy, de),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             **_bound(4 * args[1].numel() + 2 * vec_bytes,
                      int(on.sum()) * PDHG_STEPS * 4 * t * n, F32_OPS_PER_S)}
+
+
+def _pdhg_flags(args, active):
+    """Entries outside {-1, 0, 1} in four lanes of a slice (first and last
+    entry, one lane inactive, a NaN): the kernel must flag exactly the
+    active ones, as the tensor-op report does."""
+    import torch
+    from ldpc_tpu_torch.ops import pdhg_kernel
+    a = args[1].clone()
+    t = a.shape[1]
+    inactive = int((~active).nonzero()[0])
+    on = active.nonzero()[:, 0].tolist()
+    a[on[0], 0, 0] = 0.5
+    a[on[1], t - 1, -1] = -2.0
+    a[on[2], t // 2 + 1, 17] = float("nan")
+    a[inactive, 3, 3] = 7.0
+    flag = pdhg_kernel.pdhg_chunk(args[0], a, *args[2:], 2,
+                                  active=active)[3]
+    want = pdhg_kernel.outside_set(a, active)
+    torch.cuda.synchronize()
+    ok = torch.equal(flag, want) and int(want.sum()) == 3
+    print(f"[5 pdhg-vs-ref] T = {t}: entries outside {{-1, 0, 1}} in lanes "
+          f"{on[:3]} and the inactive lane {inactive}: flagged "
+          f"{flag.nonzero()[:, 0].tolist()}, as the tensor-op report: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"PDHG kernel's flag is wrong at T = {t}")
 
 
 def _alp_llrs(g, lanes, seed):
@@ -408,6 +458,7 @@ def phase_pdhg_vs_ref():
     from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
     from ldpc_tpu_torch.codes.io import read_pcm
     from ldpc_tpu_torch.decoders.alp import ALPDecoder
+    from ldpc_tpu_torch.ops import pdhg_kernel
     from ldpc_tpu_torch.ops.lp_solver import pdhg_steps
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,22 +467,32 @@ def phase_pdhg_vs_ref():
     gen = torch.Generator(device=dev).manual_seed(5)
     n = 280
     inactive = torch.arange(ALP_LANES, device=dev) % 3 == 0
+    tiers = []
+    # random signed rows in a buffer of the path's capacity, each tier a
+    # row slice of it; rows past 5T/8 zero with rhs 0
+    a_buf = torch.randint(-1, 2, (ALP_LANES, PDHG_TIERS[-1], n),
+                          generator=gen, device=dev).float()
     for t in PDHG_TIERS:
-        # random signed rows; rows past 5T/16 zero with rhs 0
-        rows = t * 5 // 16
+        rows = t * 5 // 8
         c = torch.randn((ALP_LANES, n), generator=gen, device=dev)
-        a = torch.randint(-1, 2, (ALP_LANES, t, n), generator=gen,
-                          device=dev).float()
+        a = a_buf.clone()[:, :t]
         a[:, rows:] = 0.0
         b = torch.randn((ALP_LANES, t), generator=gen, device=dev).abs() * 3
         b[:, rows:] = 0.0
         x0 = torch.rand((ALP_LANES, n), generator=gen, device=dev)
         y0 = torch.zeros((ALP_LANES, t), device=dev)
         tau, sigma = pdhg_steps(a)
+        args = (c, a, b, tau, sigma, x0, y0)
         for average in (False, True):
-            _pdhg_compare(f"random LP {ALP_LANES}x{t}x{n}, average "
-                          f"{average}", (c, a, b, tau, sigma, x0, y0),
-                          ~inactive, average)
+            plan = pdhg_kernel.kernel_plan(n, t, average)
+            row = _pdhg_compare(
+                f"random LP {ALP_LANES}x{t}x{n}, average {average}, "
+                f"{plan['blocks_per_lane']} block(s) per lane, "
+                f"{plan['row_groups']} row groups, {plan['threads']} "
+                f"threads, {plan['smem_bytes']} B shared", args, ~inactive,
+                average)
+            tiers.append({**row, **plan})
+        _pdhg_flags(args, ~inactive)
     # the real cut buffers of an ALP batch after its third round
     h = read_pcm(str(bench.MATRIX))
     g, _ = gf2_nullspace(h)
@@ -454,6 +515,7 @@ def phase_pdhg_vs_ref():
     row["shape"] = (f"{ALP_LANES}x{t}x{n} f32 cut slice (lane stride "
                     f"{dec.capacity}x{n}), {PDHG_STEPS} steps, ALP optimalH "
                     f"-3 dB after round 3")
+    row["tiers"] = tiers
     return row
 
 
@@ -478,10 +540,12 @@ def phase_alp_path():
                       extended_report="build/chip_smoke_alp_extended.csv")
     os.makedirs("build", exist_ok=True)
     pdhg_kernel.LAUNCHES = 0
+    pdhg_kernel.reset_tier_counts()
     t0 = time.perf_counter()
     rows = run_sweep(cfg, device=dev)
     secs = time.perf_counter() - t0
     launches = pdhg_kernel.LAUNCHES
+    tiers = dict(sorted(pdhg_kernel.TIER_LAUNCHES.items()))
     res = rows[0][2]
     z = z_score(res.fer, res.total, fer_ref)
     print(f"[6 alp path] run_sweep alp {ALP_SNR} dB, {res.total} trials in "
@@ -490,7 +554,9 @@ def phase_alp_path():
           f"{res.sum_iterations / res.total:.3f}, dropped "
           f"{res.sum_dropped}, pdhg_chunk launches {launches}, {secs:.2f} s "
           f"with warm-up", flush=True)
-    if launches <= 0:
+    print(f"[6 alp path] pdhg_chunk launches per row tier T: {tiers}",
+          flush=True)
+    if launches <= 0 or sum(tiers.values()) != launches:
         raise AssertionError("the ALP path did not launch the PDHG kernel")
     if not abs(z) < Z_BOUND or res.total < ALP_TRIALS:
         raise AssertionError(f"ALP FER {res.fer} is {z:+.2f} sigma from the "
@@ -524,7 +590,7 @@ def phase_alp_path():
           f"{out['kernel_s']:.3f} s / {out['xla_s']:.3f} s", flush=True)
     if agree < ALP_AGREE_MIN:
         raise AssertionError("ALP kernel and xla backends disagree")
-    return launches
+    return launches, tiers
 
 
 # the AGC-ALP path's kernels: (wrapper module, its launch counter)
@@ -700,6 +766,105 @@ def _gemv_tiers(a_buf, gen):
     return out
 
 
+def _normal_tiers(a_buf, gen):
+    """Phase 7's normal matrix. At each of NORMAL_TIERS, on the packed int8
+    copy of the row slice ``a_buf[:, :T]`` with d over 1e-8...1e8: the
+    kernel held to ``normal_ref`` on the float32 slice within the float32
+    summation bound T * 2**-23 * normal_ref(|a|, d, dxx) per entry (the
+    largest share of it used is printed), M
+    exactly symmetric and a second call bit-identical; then timed as CUDA
+    graphs of calls (device time), warm (the same inputs again) and cold
+    (rotating over copies of the packed rows that fill twice the L2),
+    beside its plain version (``normal_ref`` on the unpacked copy), the one
+    library call for the product (``baddbmm`` on the float32 slice, A d and
+    the diagonal made outside the timed call) and the bound. Last, a slice
+    ragged in every dimension (3 x 63 x 283). Returns the per-tier rows and
+    the ragged case's error."""
+    import torch
+    from ldpc_tpu_torch.ops.gemv_kernel import normal_build, pack_rows
+    from ldpc_tpu_torch.ops.gemv_ref import normal_ref, unpack_rows
+
+    delta = 1e-6
+
+    def check(a, a8, exact, d, dxx, label):
+        n = a.shape[2]
+        got, again = (normal_build(a8, d, dxx, delta, n) for _ in range(2))
+        want = normal_ref(a, d, dxx, delta)
+        bound = a.shape[1] * EPS32 * normal_ref(a.abs(), d, dxx, delta)
+        err, ok = _bounded(got, want, bound)
+        used = float(torch.nan_to_num((got - want).abs() / bound).max())
+        same = torch.equal(got, again)
+        sym = torch.equal(got, got.transpose(1, 2))
+        if not (ok and same and sym and bool(exact)):
+            raise AssertionError(
+                f"normal_build disagrees with its twin ({label}): within "
+                f"bound {ok}, repeat identical {same}, symmetric {sym}, "
+                f"packed copy exact {bool(exact)}")
+        return err, used
+
+    def weights(bsz, t, n):
+        d = 10.0 ** (torch.rand((bsz, t), generator=gen, device=dev)
+                     * 16.0 - 8.0)
+        dxx = 10.0 ** (torch.rand((bsz, n), generator=gen, device=dev)
+                       * 8.0 - 4.0)
+        return d, dxx
+
+    dev = a_buf.device
+    bsz, _, n = a_buf.shape
+    out = []
+    for t in NORMAL_TIERS:
+        a = a_buf[:, :t]
+        d, dxx = weights(bsz, t, n)
+        a8, exact = pack_rows(a)
+        err, used = check(a, a8, exact, d, dxx, f"T = {t}")
+        copies8 = _copies(a8, a8.numel())
+        # the one library call, A^T (A d) + diag
+        a_d = a * d[..., None]
+        base = torch.diag_embed(dxx + delta)
+        # bytes: the int8 rows, d, dxx in, M out; operations: three bf16
+        # planes on the tiles on or above the diagonal, two per multiply-add
+        row = {"t": t, "max_abs_err": err, "err_over_bound": used,
+               **_bound(bsz * t * n + 4 * bsz * (t + n) + 4 * bsz * n * n,
+                        3 * bsz * t * n * (n + 1), BF16_OPS_PER_S),
+               "f32_bound_ms": _bound(
+                   4 * (a.numel() + d.numel() + dxx.numel())
+                   + 4 * bsz * n * n, bsz * t * n * (n + 1),
+                   F32_OPS_PER_S)["bound_ms"],
+               "shape": f"{bsz}x{t}x{n} row slice packed to int8 "
+                        f"{tuple(a8.shape)} -> {bsz}x{n}x{n}, d over "
+                        f"1e-8..1e8, device time (CUDA graph)"}
+        row["warm_ms"] = _graph_ms(
+            lambda m: normal_build(m, d, dxx, delta, n), [(a8,)] * WARM_CALLS)
+        row["ms"] = _graph_ms(lambda m: normal_build(m, d, dxx, delta, n),
+                              [(c,) for c in copies8], COLD_ROUNDS)
+        row["plain_ms"] = _graph_ms(
+            lambda m: normal_ref(unpack_rows(m, n), d, dxx, delta),
+            [(a8,)] * WARM_CALLS)
+        row["library_ms"] = _graph_ms(
+            lambda m: torch.baddbmm(base, m.transpose(1, 2), a_d),
+            [(a,)] * WARM_CALLS)
+        print(f"[7 agc-kernels] normal_build T = {t}: max |diff| {err:.3e} "
+              f"within bound (at most {used:.4f} of it), symmetric, repeat "
+              f"bit-identical; kernel warm "
+              f"{row['warm_ms']:.5f} ms, cold {row['ms']:.5f}, plain "
+              f"{row['plain_ms']:.5f}, baddbmm {row['library_ms']:.5f}; "
+              f"bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+              f"(fraction {row['bound_ms'] / row['ms']:.3f}), f32 FMA bound "
+              f"{row['f32_bound_ms']:.5f} ms", flush=True)
+        out.append(row)
+        del copies8, a_d, base
+    a = torch.randint(-1, 2, (3, 70, 283), generator=gen,
+                      device=dev).float()[:, :63]
+    a8, exact = pack_rows(a)
+    d, dxx = weights(3, 63, 283)
+    ragged, used = check(a, a8, exact, d, dxx, "ragged")
+    print(f"[7 agc-kernels] normal_build ragged 3x63x283 (packed "
+          f"{tuple(a8.shape)}): max |diff| {ragged:.3e} within bound (at "
+          f"most {used:.4f} of it), symmetric, repeat bit-identical",
+          flush=True)
+    return out, ragged
+
+
 def phase_agc_kernels_vs_ref():
     import torch
     from ldpc_tpu_torch import bench
@@ -709,8 +874,6 @@ def phase_agc_kernels_vs_ref():
     from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv
     from ldpc_tpu_torch.ops.chol_ref import chol_diag_inv_ref, cholesky_nan
     from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
-    from ldpc_tpu_torch.ops.gemv_kernel import normal_build
-    from ldpc_tpu_torch.ops.gemv_ref import normal_ref
     from ldpc_tpu_torch.ops.gf2_gauss import (fractional_column_order,
                                               gf2_eliminate_ordered)
 
@@ -766,36 +929,13 @@ def phase_agc_kernels_vs_ref():
         2 * h_perm.numel() + active.numel(),
         int(active.sum()) * m_rows * m_rows * -(-n // 32), INT32_OPS_PER_S))
 
-    # A x and A^T y on the packed copy of row slices of a full buffer at
-    # every tier, the normal matrix on the float32 slices
+    # A x, A^T y and the normal matrix on the packed copy of row slices of
+    # a full buffer
     gen = torch.Generator(device=dev).manual_seed(13)
     a_buf = torch.randint(-1, 2, (AGC_LANES, AGC_CAP, n), generator=gen,
                           device=dev).float()
     rows.update(_gemv_tiers(a_buf, gen))
-    for t in NORMAL_TIERS:
-        a = a_buf[:, :t]
-        d = 10.0 ** (torch.rand((AGC_LANES, t), generator=gen, device=dev)
-                     * 16.0 - 8.0)
-        dxx = 10.0 ** (torch.rand((AGC_LANES, n), generator=gen, device=dev)
-                       * 8.0 - 4.0)
-        err, ok = _bounded(normal_build(a, d, dxx, 1e-6),
-                           normal_ref(a, d, dxx, 1e-6),
-                           t * EPS32 * normal_ref(a.abs(), d, dxx, 1e-6))
-        report("normal_build", f"T = {t}, d over 1e-8..1e8", err, ok,
-               lambda: normal_build(a, d, dxx, 1e-6),
-               lambda: normal_ref(a, d, dxx, 1e-6),
-               f"{AGC_LANES}x{t}x{n} f32 row slice -> {AGC_LANES}x{n}x{n}, "
-               f"d over 1e-8..1e8")
-        # the one library call for the product, A^T (A d) + diag, with
-        # A d and the diagonal made outside the timed call
-        a_d = a * d[..., None]
-        base = torch.diag_embed(dxx + 1e-6)
-        rows["normal_build"][-1].update(
-            library_ms=_time_ms(lambda: torch.baddbmm(base, a.transpose(1, 2),
-                                                      a_d)),
-            **_bound(4 * (a.numel() + d.numel() + dxx.numel())
-                     + 4 * AGC_LANES * n * n,
-                     AGC_LANES * t * n * (n + 1), F32_OPS_PER_S))
+    rows["normal_build"], rows["normal_ragged"] = _normal_tiers(a_buf, gen)
 
     # the diagonal block: 128 SPD 64 x 64 blocks and one that is not
     nb = 64
@@ -893,7 +1033,9 @@ def phase_agc_path():
     secs = time.perf_counter() - t0
     launches = _agc_counts()
     tiers = {"gemv_fwd": dict(sorted(gemv_kernel.GEMV_TIER_LAUNCHES.items())),
-             "gemv_tr": dict(sorted(gemv_kernel.GEMV_T_TIER_LAUNCHES.items()))}
+             "gemv_tr": dict(sorted(gemv_kernel.GEMV_T_TIER_LAUNCHES.items())),
+             "normal_build": dict(sorted(
+                 gemv_kernel.NORMAL_TIER_LAUNCHES.items()))}
     res = rows[0][2]
     z = z_score(res.fer, res.total, fer_ref)
     print(f"[8 agc path] run_sweep agc-alp {AGC_SNR} dB, {res.total} trials "
@@ -902,7 +1044,7 @@ def phase_agc_path():
           f"average rounds {res.sum_iterations / res.total:.3f}, dropped "
           f"{res.sum_dropped}, launches {launches}, {secs:.2f} s with "
           f"warm-up", flush=True)
-    print(f"[8 agc path] matvec launches per row tier T: {tiers}", flush=True)
+    print(f"[8 agc path] launches per row tier T: {tiers}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the AGC-ALP path did not launch every kernel: "
                              f"{launches}")
@@ -979,7 +1121,7 @@ def main() -> int:
     rows = _timed("3 kernel-vs-ref", phase_kernel_vs_ref)
     launches = _timed("4 main path", phase_main_path)
     pdhg = _timed("5 pdhg-vs-ref", phase_pdhg_vs_ref)
-    pdhg_launches = _timed("6 alp path", phase_alp_path)
+    pdhg_launches, pdhg_tiers = _timed("6 alp path", phase_alp_path)
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
     agc_launches, tiers = _timed("8 agc path", phase_agc_path)
     head = rows[-3.0]
@@ -997,7 +1139,8 @@ def main() -> int:
         "source": "ldpc_tpu_torch/csrc/pdhg_chunk.cu",
         "replaces": "ldpc_tpu/ops/pallas/pdhg_kernel.py:72",
         "launches": pdhg_launches, **{k: pdhg[k] for k in keys},
-        "shape": pdhg["shape"],
+        "shape": pdhg["shape"], "launches_per_tier": pdhg_tiers,
+        "tiers": pdhg["tiers"],
     }]
     # the AGC-ALP kernels: the largest error over the shapes checked; the
     # times at the deepest shape, for the matvecs at the tier of their worst
@@ -1014,7 +1157,16 @@ def main() -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
                  "launches": agc_launches[name]}
-        if name in tiers:
+        if name == "normal_build":
+            # the largest error over the tiers and the ragged slice; the
+            # times at the deepest tier, with a cold L2
+            row = _worst_and_last(agc_rows[name])
+            entry.update({k: row[k] for k in keys}, shape=row["shape"],
+                         launches_per_tier=tiers[name],
+                         tiers=agc_rows[name])
+            entry["max_abs_err"] = max(row["max_abs_err"],
+                                       agc_rows["normal_ragged"])
+        elif name in tiers:
             per_tier = agc_rows[name]
             row = min(per_tier, key=lambda r: r["frac"])
             entry.update(

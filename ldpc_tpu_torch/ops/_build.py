@@ -104,17 +104,18 @@ def load() -> ctypes.CDLL:
                                            i, i, i, i, i, i, p]
             lib.ldpc_bp_decode.restype = i
             lib.ldpc_pdhg_chunk.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                            i, i, i, ll, i, i, p]
+                                            p, i, i, i, ll, i, i, p]
             lib.ldpc_pdhg_chunk.restype = i
-            lib.ldpc_pdhg_chunk_smem_bytes.argtypes = [i, i, i]
-            lib.ldpc_pdhg_chunk_smem_bytes.restype = ll
+            lib.ldpc_pdhg_chunk_plan.argtypes = [i, i, i,
+                                                 ctypes.POINTER(ll)]
+            lib.ldpc_pdhg_chunk_plan.restype = i
             lib.ldpc_gemv_fwd.argtypes = [p, p, p, i, i, i, i, p]
             lib.ldpc_gemv_fwd.restype = i
             lib.ldpc_gemv_tr.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.ldpc_gemv_tr.restype = i
             lib.ldpc_gemv_chunk_rows.argtypes = [i]
             lib.ldpc_gemv_chunk_rows.restype = i
-            lib.ldpc_normal_build.argtypes = [p, p, p, p, i, i, i, ll,
+            lib.ldpc_normal_build.argtypes = [p, p, p, p, i, i, i, i,
                                               ctypes.c_float, p]
             lib.ldpc_normal_build.restype = i
             lib.ldpc_chol_diag_inv.argtypes = [p, p, p, i, i, p]

@@ -1,33 +1,30 @@
 """Python wrappers of the IPM's matvec kernels (``csrc/gemv.cu``) and of its
 normal-matrix kernel (``csrc/normal_build.cu``), and the packed copy of the
-cut rows the matvecs read.
+cut rows all three read.
 
 Replace ``ldpc_tpu/ops/pallas/gemv_kernel.py``: ``_fwd_kernel`` and
 ``_tr_kernel`` (called by ``batched_gemv`` and ``batched_gemv_t``),
 ``_normal_kernel`` (called by ``normal_build``) and ``prepare_gemv``
 (:func:`pack_rows`). Each wrapper picks by the device of ``a``: a CPU tensor
-goes to its plain twin in :mod:`.gemv_ref` (for the matvecs, on the
-unpacked copy), a CUDA tensor to the kernel, anything else raises; nothing
-falls back. On CUDA a wrapper checks its inputs (the matvecs check them on
-the CPU too), allocates the output and launches on the current stream
-without synchronising.
+goes to its plain twin in :mod:`.gemv_ref` on the unpacked copy, a CUDA
+tensor to the kernel, anything else raises; nothing falls back. A wrapper
+checks its inputs on either device, allocates the output and on CUDA
+launches on the current stream without synchronising.
 
-The matvecs read the packed copy :func:`pack_rows` makes once per solve: a
+The kernels read the packed copy :func:`pack_rows` makes once per solve: a
 contiguous (B, T, n_pad) int8 tensor, n_pad = n rounded up to 16, pad
 columns zero, so that every row starts 16-byte aligned for the kernels'
 bulk copies. Cut rows are +-1/0, so one byte is exact; ``pack_rows`` also
 returns a device flag that says so, which the IPM reads with the host read
 it already makes. The TPU's copy was bf16 in a transposed (B, n8, T) layout,
-a choice of its vector unit; int8 moves half of bf16's bytes.
-
-``normal_build`` reads the float32 cut slice as the decoder holds it,
-possibly a row slice ``a_buf[:, :T]`` of a larger per-lane buffer: its rows
-must be contiguous (strides ``(L, n, 1)``, any lane stride ``L``).
+a choice of its vector unit; int8 moves half of bf16's bytes. ``normal_build``
+runs on the tensor cores: it turns the int8 entries into bf16 (exact) and
+splits d into three bf16 planes that sum back to d exactly.
 
 ``GEMV_LAUNCHES``, ``GEMV_T_LAUNCHES`` and ``NORMAL_LAUNCHES`` count each
 kernel's launches, so a run can show that its main path went through them;
-``GEMV_TIER_LAUNCHES`` and ``GEMV_T_TIER_LAUNCHES`` count the matvecs' by row
-count T.
+``GEMV_TIER_LAUNCHES``, ``GEMV_T_TIER_LAUNCHES`` and ``NORMAL_TIER_LAUNCHES``
+count them by row count T.
 """
 from __future__ import annotations
 
@@ -43,6 +40,7 @@ GEMV_T_LAUNCHES = 0
 NORMAL_LAUNCHES = 0
 GEMV_TIER_LAUNCHES: Counter = Counter()
 GEMV_T_TIER_LAUNCHES: Counter = Counter()
+NORMAL_TIER_LAUNCHES: Counter = Counter()
 
 __all__ = ["batched_gemv", "batched_gemv_t", "normal_build", "pack_rows",
            "reset_tier_counts"]
@@ -63,9 +61,10 @@ def _run_counts(device: torch.device, bsz: int) -> torch.Tensor:
 
 
 def reset_tier_counts() -> None:
-    """Set the per-T launch counts of both matvecs to zero."""
+    """Set the per-T launch counts of the three kernels to zero."""
     GEMV_TIER_LAUNCHES.clear()
     GEMV_T_TIER_LAUNCHES.clear()
+    NORMAL_TIER_LAUNCHES.clear()
 
 
 def pack_rows(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -101,21 +100,6 @@ def _check_a8(fn: str, a8: torch.Tensor, n: int) -> tuple[int, int, int]:
     if not a8.is_contiguous() or a8.data_ptr() % PAD:
         raise ValueError(f"{fn}: a must be contiguous and 16-byte aligned")
     return bsz, t, n_pad
-
-
-def _check_a(fn: str, a: torch.Tensor) -> tuple[int, int, int]:
-    if a.dtype != torch.float32:
-        raise TypeError(f"{fn}: a must be torch.float32, got {a.dtype}")
-    if a.dim() != 3:
-        raise ValueError(f"{fn}: a must be 3-D, got shape {tuple(a.shape)}")
-    bsz, t, n = a.shape
-    if t < 1 or n < 1:
-        raise ValueError(f"{fn}: empty row slice or columns, a has shape "
-                         f"{tuple(a.shape)}")
-    if a.stride(2) != 1 or (t > 1 and a.stride(1) != n):
-        raise ValueError(f"{fn}: a's rows must be contiguous (strides "
-                         f"(L, {n}, 1)), got {a.stride()}")
-    return bsz, t, n
 
 
 def _check_vec(fn: str, name: str, v: torch.Tensor, shape: tuple,
@@ -196,19 +180,22 @@ def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def normal_build(a: torch.Tensor, d: torch.Tensor, dxx: torch.Tensor,
-                 delta: float) -> torch.Tensor:
-    """M = A^T diag(d) A + diag(dxx) + delta I per lane: a (B, T, n),
-    d (B, T), dxx (B, n), all float32 -> (B, n, n) float32, both triangles
-    written."""
+                 delta: float, n: int) -> torch.Tensor:
+    """M = A^T diag(d) A + diag(dxx) + delta I per lane: a the (B, T, n_pad)
+    int8 copy from :func:`pack_rows` of a slice with ``n`` columns, d (B, T)
+    and dxx (B, n) float32 -> (B, n, n) float32, both triangles written and
+    exactly symmetric."""
     global NORMAL_LAUNCHES
-    if _device_or_raise("normal_build", a):
-        return normal_ref(a, d, dxx, delta)
-    bsz, t, n = _check_a("normal_build", a)
+    on_cpu = _device_or_raise("normal_build", a)
+    bsz, t, n_pad = _check_a8("normal_build", a, n)
     _check_vec("normal_build", "d", d, (bsz, t), a.device)
     _check_vec("normal_build", "dxx", dxx, (bsz, n), a.device)
+    if on_cpu:
+        return normal_ref(unpack_rows(a, n), d, dxx, delta)
     out = torch.empty((bsz, n, n), dtype=torch.float32, device=a.device)
     if bsz:
         _launch("normal_build", "ldpc_normal_build", a, d, dxx, out, bsz, t,
-                n, a.stride(0), float(delta))
+                n, n_pad, float(delta))
         NORMAL_LAUNCHES += 1
+        NORMAL_TIER_LAUNCHES[t] += 1
     return out

@@ -17,7 +17,7 @@ and solves it twice (predictor and corrector). Backends:
   configurations carry across) runs the plain twins of :mod:`.gemv_ref`;
   ``"kernel"`` runs :mod:`.gemv_kernel` (``csrc/gemv.cu`` and
   ``csrc/normal_build.cu`` on a CUDA tensor, the same twins on a CPU tensor).
-  Its matvecs read an int8 copy of the rows made once per solve
+  All three read an int8 copy of the rows made once per solve
   (``pack_rows``), exact for entries in {-1, 0, 1}: the solve raises
   ``ValueError`` on any other entry, read with the first chunk's host read;
 * ``factor_backend``: ``"xla"`` is ``torch.linalg.cholesky_ex`` +
@@ -133,7 +133,8 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
             return batched_gemv_t(a8, v.contiguous(), n)
 
         def normal(d, dxx):
-            return normal_build(a, d.contiguous(), dxx.contiguous(), delta)
+            return normal_build(a8, d.contiguous(), dxx.contiguous(), delta,
+                                n)
     else:
         def mv(v):
             return gemv_ref(a, v)

@@ -130,6 +130,12 @@ def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
     return x, y, v
 
 
+def _refuse_rows(outside) -> None:
+    if outside:
+        raise ValueError("pdhg_box_lp_fused: the kernel needs cut rows with "
+                         "entries in {-1, 0, 1}")
+
+
 def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
                       tol: float = 1e-4, check_every: int = 200,
                       active=None, stall_ratio: float | None = None,
@@ -137,25 +143,46 @@ def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
     """Tolerance-driven PDHG whose chunks are :func:`pdhg_chunk` calls.
 
     Same arguments and (x, y, err) return as ``pdhg_box_lp(tol=...)``; any
-    row count. The error starts at +inf, so the first chunk always runs (no
-    host read before it); inactive lanes' errors are zeroed. ``a_rows`` may
-    be a row slice of a larger per-lane buffer (lane stride > R * n); ``b``
-    and ``y0`` are made contiguous once per solve.
+    row count the kernel's shared memory holds. The error starts at +inf, so
+    the first chunk always runs (no host read before it); inactive lanes'
+    errors are zeroed. ``a_rows`` may be a row slice of a larger per-lane
+    buffer (lane stride > R * n); ``b`` and ``y0`` are made contiguous once
+    per solve.
+
+    The kernel holds the rows as int8, exact for entries in {-1, 0, 1}: the
+    first chunk reports any other entry of an active lane, and the solve
+    raises ``ValueError`` on it. The report is read with the host read the
+    loop makes before its second chunk (after the loop when only one chunk
+    was to run).
     """
     tau, sigma = pdhg_steps(a_rows, safety, omega)
     x, y = x0.contiguous(), y0.contiguous()
     b = b.contiguous()
-    v = None
+    v = guard = None
     vprev = np.float32(np.inf)
     for _ in range(-(-iters // check_every)):
-        vmax = np.float32(np.inf) if v is None else _host_max(v)
+        if v is None:
+            vmax = np.float32(np.inf)
+        elif guard is None:
+            vmax = _host_max(v)
+        else:                       # one host read for both values
+            vmax, outside = torch.stack((v.max(), guard.any().to(v.dtype))
+                                        ).tolist()
+            vmax, guard = np.float32(vmax), None
+            _refuse_rows(outside)
         if not _go(vmax, vprev, tol, stall_ratio):
             break
-        x, y, v = pdhg_chunk(c, a_rows, b, tau, sigma, x, y, check_every,
-                             active=active, average=average)
+        first = v is None
+        x, y, v, outside = pdhg_chunk(c, a_rows, b, tau, sigma, x, y,
+                                      check_every, active=active,
+                                      average=average)
+        if first:                   # the rows are the same in every chunk
+            guard = outside
         if active is not None:
             v = torch.where(active, v, 0.0)
         vprev = vmax
+    if guard is not None:
+        _refuse_rows(guard.any().item())
     if v is None:
         v = torch.full((a_rows.shape[0],), float("inf"),
                        dtype=torch.float32, device=a_rows.device)

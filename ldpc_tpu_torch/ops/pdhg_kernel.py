@@ -11,10 +11,23 @@ current stream without synchronising.
 rows must be contiguous (strides ``(L, n, 1)``, any lane stride ``L``); the
 kernel takes ``L``. Every other tensor must be contiguous.
 
+The kernel holds each lane's slice in shared memory as int8, which is exact
+only for entries in {-1, 0, 1}; it checks every entry while it converts and
+reports per lane. The wrapper returns that report as a fourth value, a (B,)
+bool tensor that is true for an active lane whose slice has another entry
+(that lane's result is wrong; the caller raises, as ``pdhg_box_lp_fused``
+does). On the CPU the same report is made with tensor
+operations. A shape whose slice fits neither one block's shared memory nor a
+cluster of two is refused with ``ValueError`` (:func:`kernel_plan` says how
+a shape is laid out).
+
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+path went through the kernel; ``TIER_LAUNCHES`` counts them by row count T.
 """
 from __future__ import annotations
+
+import ctypes
+from collections import Counter
 
 import torch
 
@@ -22,8 +35,39 @@ from . import _build
 from .pdhg_ref import pdhg_chunk_ref
 
 LAUNCHES = 0
+TIER_LAUNCHES: Counter = Counter()
 
-__all__ = ["pdhg_chunk"]
+__all__ = ["kernel_plan", "outside_set", "pdhg_chunk", "reset_tier_counts"]
+
+
+def reset_tier_counts() -> None:
+    """Set the per-T launch counts to zero."""
+    TIER_LAUNCHES.clear()
+
+
+def outside_set(a: torch.Tensor, active=None) -> torch.Tensor:
+    """(B,) bool: the lane is active and its slice ``a`` (B, T, n) has an
+    entry other than -1, 0 or 1. What the kernel reports, with tensor
+    operations."""
+    bad = ((a != 0) & (a != 1) & (a != -1)).flatten(1).any(dim=1)
+    return bad if active is None else bad & active
+
+
+def kernel_plan(n: int, t: int, average: bool = False) -> dict:
+    """How the kernel lays out a (T, n) slice on the current CUDA device:
+    ``fits``, ``blocks_per_lane`` (1, or a cluster of 2 that splits the rows),
+    ``row_groups``, ``threads`` and ``smem_bytes`` per block (for a shape
+    that does not fit, the smallest layout's)."""
+    out = (ctypes.c_longlong * 5)()
+    lib = _build.load()
+    code = lib.ldpc_pdhg_chunk_plan(n, t, int(average), out)
+    if code != 0:
+        msg = lib.ldpc_cuda_error_string(code).decode()
+        raise RuntimeError(f"pdhg_chunk plan failed: CUDA error {code} "
+                           f"({msg})")
+    return {"fits": bool(out[0]), "blocks_per_lane": int(out[1]),
+            "row_groups": int(out[2]), "threads": int(out[3]),
+            "smem_bytes": int(out[4])}
 
 
 def _check(name: str, v: torch.Tensor, shape: tuple, dtype: torch.dtype,
@@ -44,16 +88,19 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
                average: bool = False):
     """``iters`` PDHG steps per lane and the lane's error at the end.
 
-    c, tau, x: (B, n) float32; a: (B, T, n) float32; b, sigma, y: (B, T)
-    float32; ``active``: optional (B,) bool (inactive lanes pass x and y
-    through and read error 0). Returns (x', y', err (B,)), as
-    :func:`..ops.pdhg_ref.pdhg_chunk_ref` does.
+    c, tau, x: (B, n) float32; a: (B, T, n) float32 with entries in
+    {-1, 0, 1}; b, sigma, y: (B, T) float32; ``active``: optional (B,) bool
+    (inactive lanes pass x and y through and read error 0). Returns
+    (x', y', err (B,)), as :func:`..ops.pdhg_ref.pdhg_chunk_ref` does, and
+    a fourth value, (B,) bool, true for an active lane whose slice has an
+    entry outside the set.
     """
     global LAUNCHES
     dev = a.device
     if dev.type == "cpu":
-        return pdhg_chunk_ref(c, a, b, tau, sigma, x, y, iters,
-                              active=active, average=average)
+        out = pdhg_chunk_ref(c, a, b, tau, sigma, x, y, iters,
+                             active=active, average=average)
+        return (*out, outside_set(a, active))
     if dev.type != "cuda":
         raise ValueError(f"pdhg_chunk: no implementation for {dev}")
     if a.dtype != torch.float32:
@@ -79,28 +126,32 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
         _check("active", active, (bsz,), torch.bool, dev)
     lib = _build.load()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    need = lib.ldpc_pdhg_chunk_smem_bytes(n, t, int(average))
-    limit = lib.ldpc_smem_optin_limit(index)
-    if need > limit:
-        raise ValueError(f"pdhg_chunk: one lane needs {need} bytes of shared "
-                         f"memory (n={n}, T={t}, average={average}); the "
-                         f"card allows {limit}")
+    with torch.cuda.device(dev):
+        plan = kernel_plan(n, t, average)
+    if not plan["fits"]:
+        limit = lib.ldpc_smem_optin_limit(index)
+        raise ValueError(f"pdhg_chunk: half a lane's slice needs "
+                         f"{plan['smem_bytes']} bytes of shared memory "
+                         f"(n={n}, T={t}, average={average}); the card "
+                         f"allows {limit} per block")
     x_out = torch.empty_like(x)
     y_out = torch.empty_like(y)
     err = torch.empty((bsz,), dtype=f32, device=dev)
-    if bsz == 0:
-        return x_out, y_out, err
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ldpc_pdhg_chunk(
-            c.data_ptr(), a.data_ptr(), b.data_ptr(), tau.data_ptr(),
-            sigma.data_ptr(), x.data_ptr(), y.data_ptr(),
-            active.data_ptr() if active is not None else None,
-            x_out.data_ptr(), y_out.data_ptr(), err.data_ptr(),
-            bsz, n, t, a.stride(0), int(iters), int(average), stream)
-    if code != 0:
-        msg = lib.ldpc_cuda_error_string(code).decode()
-        raise RuntimeError(f"pdhg_chunk launch failed: CUDA error {code} "
-                           f"({msg})")
-    LAUNCHES += 1
-    return x_out, y_out, err
+    flag = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    if bsz:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.ldpc_pdhg_chunk(
+                c.data_ptr(), a.data_ptr(), b.data_ptr(), tau.data_ptr(),
+                sigma.data_ptr(), x.data_ptr(), y.data_ptr(),
+                active.data_ptr() if active is not None else None,
+                x_out.data_ptr(), y_out.data_ptr(), err.data_ptr(),
+                flag.data_ptr(), bsz, n, t, a.stride(0), int(iters),
+                int(average), stream)
+        if code != 0:
+            msg = lib.ldpc_cuda_error_string(code).decode()
+            raise RuntimeError(f"pdhg_chunk launch failed: CUDA error {code} "
+                               f"({msg})")
+        LAUNCHES += 1
+        TIER_LAUNCHES[t] += 1
+    return x_out, y_out, err, flag != 0

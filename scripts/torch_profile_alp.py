@@ -4,7 +4,7 @@ Runs ALP (optimalH, -3 dB, batches of 256, the sweep app's configuration)
 through ``run_experiment`` once to warm up (kernel build included), then
 once more under ``torch.profiler``, and prints: the wall time and device-busy
 time of the profiled run and the idle share; the PDHG kernel's share of
-device time; the device time spent under each phase of a cut round (cut
+device time and its launches per row tier; the device time spent under each phase of a cut round (cut
 search, tier solve, the rest), marked with ``record_function`` ranges that
 this script wraps around the decoder's functions; the host reads per batch
 (device-to-host copies, each of which waits for the stream); and the kernels
@@ -91,6 +91,7 @@ def main(argv=None):
     run()
     torch.cuda.synchronize()
     launches = pdhg_kernel.LAUNCHES
+    pdhg_kernel.reset_tier_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -117,7 +118,8 @@ def main(argv=None):
           f"{1.0 - busy_us / 1e6 / wall:.4f}")
     print(f"pdhg_chunk_kernel: {pdhg_us / 1e3:.3f} ms over {launches} "
           f"launches ({launches / batches:.1f} per batch), "
-          f"{pdhg_us / busy_us:.4f} of device busy time")
+          f"{pdhg_us / busy_us:.4f} of device busy time; launches per row "
+          f"tier T: {dict(sorted(pdhg_kernel.TIER_LAUNCHES.items()))}")
     print(f"host reads (device-to-host copies): {d2h} ({d2h / batches:.1f} "
           f"per batch)")
     for name in RANGE_NAMES:

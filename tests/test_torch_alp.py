@@ -260,6 +260,46 @@ def test_unported_options_raise(small_h):
             torch.zeros(2, 128, device="meta"))
 
 
+@pytest.mark.parametrize("name,snr", [("H", -1.0), ("optimalH", 0.0)])
+def test_kernel_path_accepts_real_cut_buffers(name, snr):
+    """Every cut row the decoder appends is +-1/0, so the kernel path's
+    guard (pdhg_box_lp_fused raises on any other entry) stays silent over
+    whole decodes, and every solved slice reads clean in outside_set."""
+    h = _h(name)
+    llrs, _ = _llrs(h, 6, snr, seed=12)
+    dec = ALPDecoder(h, lp_backend="kernel", max_rounds=6, lp_iters=128,
+                     device=CPU)
+    st = dec._init_state(torch.from_numpy(llrs))
+    for _ in range(3):
+        st = dec._round_body(st)
+        assert not bool(pdhg_kernel.outside_set(st["a"]).any())
+    assert int(st["count"].max()) > 0
+    res = dec.decode_batch(torch.from_numpy(llrs))
+    assert res.bits.shape == llrs.shape
+
+
+def test_kernel_path_refuses_a_corrupted_cut_buffer(monkeypatch):
+    """A cut row scaled by 2 (what a faulty append would leave) makes the
+    kernel path's solve raise ValueError; the xla path, which reads the
+    float32 rows, does not look."""
+    from ldpc_tpu_torch.decoders import alp as talp
+    h = _h("H")
+    llrs, _ = _llrs(h, 4, -1.0, seed=3)
+    real = talp.append_cuts
+
+    def doubled(*args, **kwargs):
+        out = list(real(*args, **kwargs))
+        out[0] = out[0] * 2.0
+        return tuple(out)
+
+    monkeypatch.setattr(talp, "append_cuts", doubled)
+    kw = dict(max_rounds=4, lp_iters=128, device=CPU)
+    with pytest.raises(ValueError, match=r"entries in \{-1, 0, 1\}"):
+        ALPDecoder(h, lp_backend="kernel", **kw).decode_batch(
+            torch.from_numpy(llrs))
+    ALPDecoder(h, lp_backend="xla", **kw).decode_batch(torch.from_numpy(llrs))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -286,3 +326,21 @@ def test_alp_on_card_kernel_vs_xla(cuda_device):
     cpu = ALPDecoder(h, lp_backend="xla", device=CPU).decode_batch(
         torch.from_numpy(llrs))
     assert (cpu.success == ref.success.cpu()).float().mean().item() >= 0.95
+
+
+@pytest.mark.gpu
+def test_alp_on_card_counts_launches_per_tier(cuda_device):
+    """A capacity-896 decode at -3 dB: every launch is counted under its row
+    tier, the tiers are the decoder's own, the deepest is reached or the
+    batch ends before it, and no cut is dropped."""
+    h = _h("optimalH")
+    llrs, _ = _llrs(h, 256, -3.0, seed=9)
+    dec = ALPDecoder(h, device=cuda_device)
+    pdhg_kernel.reset_tier_counts()
+    before = pdhg_kernel.LAUNCHES
+    res = dec.decode_batch(torch.from_numpy(llrs).to(cuda_device))
+    tiers = dict(pdhg_kernel.TIER_LAUNCHES)
+    assert sum(tiers.values()) == pdhg_kernel.LAUNCHES - before > 0
+    assert set(tiers) <= {128, 256, 384, 512, 640, 896}
+    assert min(tiers) == 128 and max(tiers) >= 384
+    assert int(res.dropped.sum()) == 0

@@ -228,6 +228,84 @@ def test_chunk_wrapper_routes_cpu_to_twin():
         pdhg_chunk_ref(*args[:7], 0)
 
 
+@pytest.mark.parametrize("bad", [0.5, 2.0, -2.0, float("nan")])
+@pytest.mark.parametrize("average", [False, True])
+def test_chunk_wrapper_flags_rows_outside_the_set_on_cpu(bad, average):
+    """The wrapper's fourth value: true for an active
+    lane whose slice has an entry other than -1, 0, 1, made on the CPU with
+    tensor operations; x, y and err are the plain version's."""
+    c, a, b, x0, y0 = _random_lp(3, bsz=4, t_rows=64, n=40, active=20)
+    a[1, 5, 7] = bad
+    a[2, 63, 39] = bad
+    tau, sigma = pdhg_steps(torch.from_numpy(np.nan_to_num(a)))
+    args = (*_t(c, a, b), tau, sigma, *_t(x0, y0), 8)
+    act = torch.tensor([True, True, False, True])
+    out = pdhg_kernel.pdhg_chunk(*args, active=act, average=average)
+    assert len(out) == 4 and out[3].dtype == torch.bool
+    assert out[3].tolist() == [False, True, False, False]
+    assert pdhg_kernel.pdhg_chunk(*args, average=average)[3].tolist() == [
+        False, True, True, False]
+    assert pdhg_kernel.outside_set(torch.from_numpy(a)).tolist() == [
+        False, True, True, False]
+    want = pdhg_chunk_ref(*args, active=act, average=average)
+    for g, w in zip(out[:3], want):
+        assert torch.equal(g, w) or bool(torch.isnan(w).any())
+
+
+@pytest.mark.parametrize("bad", [0.5, -2.0])
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_fused_solver_refuses_rows_outside_the_set(bad, chunks):
+    """A row with an entry outside {-1, 0, 1} raises, whether the solve runs
+    one chunk (read after the loop) or several (read with the second
+    chunk's host read); an inactive lane's rows are not looked at; real cut
+    rows pass."""
+    c, a, b, x0, y0 = _random_lp(11, bsz=3, t_rows=64, n=40, active=30)
+    kw = dict(tol=1e-9, check_every=16)
+    good = pdhg_box_lp_fused(*_t(c, a, b, x0, y0), 16 * chunks, **kw)
+    assert all(bool(torch.isfinite(v).all()) for v in good)
+    a[1, 3, 7] = bad
+    with pytest.raises(ValueError, match=r"entries in \{-1, 0, 1\}"):
+        pdhg_box_lp_fused(*_t(c, a, b, x0, y0), 16 * chunks, **kw)
+    act = torch.tensor([True, False, True])
+    x, _, v = pdhg_box_lp_fused(*_t(c, a, b, x0, y0), 16 * chunks,
+                                active=act, **kw)
+    assert torch.equal(x[1], torch.from_numpy(x0)[1]) and float(v[1]) == 0.0
+
+
+def test_fused_solver_makes_no_extra_host_read(monkeypatch):
+    """The guard rides on the loop's own host read: with several chunks,
+    one read per chunk after the first and none after the loop."""
+    c, a, b, x0, y0 = _random_lp(13, bsz=2, t_rows=64, n=40, active=30)
+    reads = []
+    for name in ("item", "tolist"):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, _real=real, _name=name):
+            reads.append(_name)
+            return _real(self)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    pdhg_box_lp_fused(*_t(c, a, b, x0, y0), 64, tol=1e-9, check_every=16)
+    assert len(reads) == 3, reads          # before chunks 2, 3 and 4
+    del reads[:]
+    pdhg_box_lp_fused(*_t(c, a, b, x0, y0), 16, tol=1e-9, check_every=16)
+    assert len(reads) == 1, reads          # one chunk: the guard, at the end
+
+
+def test_tier_launch_counter_counts_and_resets():
+    """TIER_LAUNCHES counts launches by row count T (none on the CPU, where
+    the wrapper runs the plain version) and reset_tier_counts clears it."""
+    pdhg_kernel.TIER_LAUNCHES[128] += 2
+    pdhg_kernel.TIER_LAUNCHES[896] += 1
+    assert dict(pdhg_kernel.TIER_LAUNCHES) == {128: 2, 896: 1}
+    pdhg_kernel.reset_tier_counts()
+    assert not pdhg_kernel.TIER_LAUNCHES
+    c, a, b, x0, y0 = _random_lp(2, bsz=2, t_rows=64, n=40, active=20)
+    tau, sigma = pdhg_steps(torch.from_numpy(a))
+    pdhg_kernel.pdhg_chunk(*_t(c, a, b), tau, sigma, *_t(x0, y0), 4)
+    assert not pdhg_kernel.TIER_LAUNCHES
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -249,8 +327,8 @@ def test_kernel_matches_twin_on_card(cuda_device, t_rows, active_rows,
     tau, sigma = pdhg_steps(a)
     act = torch.arange(96, device=dev) % 3 != 0
     before = pdhg_kernel.LAUNCHES
-    x, y, err = pdhg_kernel.pdhg_chunk(c, a, b, tau, sigma, x0, y0, 64,
-                                       active=act, average=average)
+    x, y, err, _ = pdhg_kernel.pdhg_chunk(c, a, b, tau, sigma, x0, y0, 64,
+                                          active=act, average=average)
     torch.cuda.synchronize()
     assert pdhg_kernel.LAUNCHES == before + 1
     xr, yr, er = pdhg_chunk_ref(c, a, b, tau, sigma, x0, y0, 64,
@@ -270,9 +348,10 @@ def test_kernel_strided_slice_and_checks_on_card(cuda_device):
     a_t, b_t, y_t = a[:, :128], b[:, :128].contiguous(), y0[:, :128]
     tau, sigma = pdhg_steps(a_t)
     y_t = y_t.contiguous()
-    x, y, err = pdhg_kernel.pdhg_chunk(c, a_t, b_t, tau, sigma, x0, y_t, 64)
-    xr, yr, er = pdhg_kernel.pdhg_chunk(c, a_t.contiguous(), b_t, tau,
-                                        sigma, x0, y_t, 64)
+    x, y, err, _ = pdhg_kernel.pdhg_chunk(c, a_t, b_t, tau, sigma, x0, y_t,
+                                          64)
+    xr, yr, er, _ = pdhg_kernel.pdhg_chunk(c, a_t.contiguous(), b_t, tau,
+                                           sigma, x0, y_t, 64)
     assert torch.equal(x, xr) and torch.equal(y, yr) and torch.equal(err, er)
     with pytest.raises(ValueError, match="contiguous"):
         pdhg_kernel.pdhg_chunk(c, a_t, b[:, :128], tau, sigma, x0, y_t, 64)
@@ -290,3 +369,64 @@ def test_kernel_strided_slice_and_checks_on_card(cuda_device):
                                .contiguous(), tau[:1],
                                torch.zeros((1, 60000), device=dev), x0[:1],
                                torch.zeros((1, 60000), device=dev), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_rows", [128, 256, 384, 512, 640, 896, 1, 333])
+@pytest.mark.parametrize("average", [False, True])
+def test_kernel_every_alp_tier_on_card(cuda_device, t_rows, average):
+    """Every row tier of the ALP path at its batch (256 lanes, n = 280) and
+    two ragged row counts, on a lane-strided slice: within the bounds of the
+    plain version, inactive lanes passed through, the same bits on a second
+    call, the launch counted under its tier, no lane flagged; T = 896 runs
+    as a cluster of two blocks per lane."""
+    dev = cuda_device
+    c, a, b, x0, y0 = (torch.from_numpy(v).to(dev) for v in _random_lp(
+        t_rows, bsz=256, t_rows=t_rows + 3, active=max(1, t_rows * 5 // 8)))
+    a_t, b_t = a[:, :t_rows], b[:, :t_rows].contiguous()
+    y_t = y0[:, :t_rows].contiguous()
+    tau, sigma = pdhg_steps(a_t)
+    act = torch.arange(256, device=dev) % 3 != 0
+    plan = pdhg_kernel.kernel_plan(280, t_rows, average)
+    assert plan["fits"]
+    assert plan["blocks_per_lane"] == (2 if t_rows == 896 else 1)
+    pdhg_kernel.reset_tier_counts()
+    runs = [pdhg_kernel.pdhg_chunk(c, a_t, b_t, tau, sigma, x0, y_t, 64,
+                                   active=act, average=average)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert dict(pdhg_kernel.TIER_LAUNCHES) == {t_rows: 2}
+    for g, w in zip(*runs):
+        assert torch.equal(g, w)
+    x, y, err, flag = runs[0]
+    xr, yr, er = pdhg_chunk_ref(c, a_t, b_t, tau, sigma, x0, y_t, 64,
+                                active=act, average=average)
+    assert float((x - xr).abs().max()) <= X_TOL
+    assert float((y - yr).abs().max()) <= Y_TOL
+    assert float((err - er).abs().max()) <= ERR_TOL
+    assert torch.equal(x[~act], x0[~act]) and torch.equal(y[~act], y_t[~act])
+    assert not bool(flag.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_rows", [128, 896])
+def test_kernel_flags_rows_outside_the_set_on_card(cuda_device, t_rows):
+    """The kernel's per-lane report equals the CPU's (outside_set), for an
+    entry in either half of a split slice and in an inactive lane; the fused
+    solver raises on it."""
+    dev = cuda_device
+    c, a, b, x0, y0 = (torch.from_numpy(v).to(dev) for v in _random_lp(
+        5, bsz=8, t_rows=t_rows, active=t_rows // 2))
+    a[1, 0, 0] = 0.5
+    a[2, t_rows - 1, 279] = -2.0
+    a[3, 7, 100] = 3.0
+    a[6, t_rows // 2, 17] = float("nan")
+    act = torch.arange(8, device=dev) != 3
+    tau, sigma = pdhg_steps(torch.nan_to_num(a))
+    flag = pdhg_kernel.pdhg_chunk(c, a, b, tau, sigma, x0, y0, 8,
+                                  active=act)[3]
+    assert flag.tolist() == pdhg_kernel.outside_set(a, act).tolist() == [
+        False, True, True, False, False, False, True, False]
+    with pytest.raises(ValueError, match=r"entries in \{-1, 0, 1\}"):
+        pdhg_box_lp_fused(c, a, b, x0, y0, 128, tol=1e-9, check_every=64,
+                          active=act)
