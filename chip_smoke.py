@@ -14,19 +14,25 @@ printing one line before the next starts:
    least 99.5 % of lanes, and the bits agree exactly on every lane where
    both succeeded at the same iteration; the only allowed source of
    disagreement is the order of float32 sums and the math library's
-   log/tanh. Times each with CUDA events (3 repeats after a warm-up);
+   log/tanh. Times each with CUDA events (3 repeats after a warm-up). Then
+   ``BPDecoder`` with ``variant="minsum"`` and with ``fixed_iters=True``
+   decodes 1,024 of the lanes on the card through ``decode_batch`` (the
+   plain decode, no kernel launch), held to the same decoder on the CPU
+   for the same LLRs by the same rule;
 4. main path at full size: ``ldpc_tpu_torch.bench.main()`` (65,536 trials,
    batch 8192, -3 dB, 100 and 50 iterations) with the kernel's launch count
    reset before and read after; the FER must lie within |z| < 3.5 of the
    reference's 0.4860 (10,000 trials);
 5. PDHG chunk kernel vs its plain twin ``ops.pdhg_ref`` on the card: random
    signed-row LPs shaped like ``tests/test_pallas_pdhg.py``'s (256 lanes,
-   n = 280, every row tier of the ALP path, T = 128 ... 896, 64 steps,
-   ``average`` off and on, a third of the lanes inactive, each a row slice
-   of a deeper buffer), and the real cut buffers of an ALP batch (256
-   optimalH lanes at -3 dB) after its third round. Bounds: the JAX
-   package's own between its kernel and XLA, |dx| <= 2e-5, |dy| <= 2e-4,
-   |d err| <= 1e-5 (float32 sum order only; neither side uses fast math),
+   n = 280, every row tier of the ALP path, T = 128 ... 896, and n = 640,
+   H02's tiers that need clusters of 4 and 8 blocks, T = 640, 896, 1408,
+   2176; 64 steps, ``average`` off and on, a third of the lanes inactive,
+   each a row slice of a deeper buffer), and the real cut buffers of an
+   ALP batch (256 optimalH lanes at -3 dB) after its third round. Bounds:
+   the JAX package's own between its kernel and XLA, |dx| <= 2e-5,
+   |dy| <= 2e-4, |d err| <= 1e-5 (float32 sum order only; neither side uses
+   fast math),
    inactive lanes bit-identical, a second call bit-identical, no lane
    flagged; then a slice with entries outside {-1, 0, 1} must be flagged
    in exactly its lanes. Prints each tier's layout (blocks per lane, row
@@ -58,7 +64,8 @@ printing one line before the next starts:
    (within 1e-4 of the twin's scale, NaN in that lane only); and the whole
    blocked factor and solve on the batch's last normal matrix (its residual
    at most 10x that of ``cholesky_ex`` + ``cholesky_solve`` plus 1e-3 of
-   |r|, the rule of ``tests/test_chol.py``). Times each with CUDA events;
+   |r|, the rule of ``tests/test_chol.py``). Times each with CUDA events,
+   the diagonal-block kernel also as a CUDA graph (device time);
    the matvecs, their plain versions, ``bmm`` on the float32 slice and the
    pack as CUDA graphs of calls (device time), warm and with a cold L2,
    beside each one's bound, and the host's cost per call apart; the normal
@@ -72,7 +79,13 @@ printing one line before the next starts:
    the same 128 lanes decoded with the kernel backends and with the plain
    ones (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
    ``"xla"``): success agrees on >= 95 % of lanes (the IPM's stop tests
-   read float32 errors summed in another order).
+   read float32 errors summed in another order);
+9. ALP on H02 (520 x 640, capacity 2176): ``run_sweep`` with decoders
+   ``alp``, -7 dB, 256 trials in one batch, with the PDHG kernel's launch
+   counts reset before and read after and printed per row tier. H02 has
+   no golden FER, so this is no parity check: it must run to its end with
+   no cut dropped and launch the kernel at T >= 640 (clusters of 4 blocks
+   per lane).
 
 Each phase prints its seconds. Then the script prints the kernels' JSON
 line, the card's ``name, power.limit`` line and, last,
@@ -93,6 +106,7 @@ LANES = 8192
 MAX_ITER = 100
 AGREE_MIN = 0.995
 REPEATS = 3
+VARIANT_LANES = 1024
 # phases 5 and 6: the ALP path (DEFAULT_BATCH["alp"], lp_iters)
 ALP_LANES = 256
 ALP_SNR = -3.0
@@ -100,6 +114,11 @@ ALP_TRIALS = 2048
 PDHG_STEPS = 64
 # every row tier of the ALP path (decoders/alp.py, capacity 896)
 PDHG_TIERS = (128, 256, 384, 512, 640, 896)
+# H02's width and its tiers that need clusters of 4 and 8 blocks per lane
+H02_N = 640
+H02_PDHG_TIERS = (640, 896, 1408, 2176)
+H02_SNR = -7.0
+H02_TRIALS = 256
 X_TOL, Y_TOL, ERR_TOL = 2e-5, 2e-4, 1e-5
 ALP_AGREE_MIN = 0.95
 # phases 7 and 8: the AGC-ALP path (DEFAULT_BATCH["agc-alp"], capacity)
@@ -230,15 +249,16 @@ def _ptxas_usage(log: str) -> str:
 
 
 SASS_OPS = ("LDS", "LDSM", "PRMT", "LOP3", "FADD", "FFMA", "HMUL2", "HMMA",
-            "I2F", "SYNCS")
+            "I2F", "SYNCS", "SHFL", "MUFU", "BAR")
 
 
 def _sass_mix(lib: str) -> str:
-    """Static counts of a few opcodes in the SASS of the kernels that read
-    packed int8 rows (``cuobjdump -sass``), to read that the int8 unpack
-    compiled to PRMT + FADD and that the normal matrix runs on the tensor
-    cores (HMMA, fed by LDSM): the counts cover the whole kernel, not only
-    its loops."""
+    """Static counts of all instructions and of a few opcodes in the SASS
+    of the kernels (``cuobjdump -sass``), to read that the int8 unpack of
+    the packed-row kernels compiled to PRMT + FADD, that the normal matrix
+    runs on the tensor cores (HMMA, fed by LDSM), and how large the unrolled
+    diagonal-block and BP kernels are: the counts cover the whole kernel,
+    not only its loops."""
     from collections import Counter
 
     from ldpc_tpu_torch.ops import _build
@@ -250,19 +270,21 @@ def _sass_mix(lib: str) -> str:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"\d((?:gemv_[a-z_]*|normal_build|pdhg_chunk)"
-                              r"_kernel)(ILb([01])ELb([01])E)?", line)
+            found = re.search(r"\d((?:gemv_[a-z_]*|normal_build|pdhg_chunk|"
+                              r"chol_diag_inv|bp_decode)_kernel)"
+                              r"(I(?:Lb[01]E)+E)?", line)
             name = found.group(1) if found else None
             if name and found.group(2):
-                name += f"<{found.group(3)},{found.group(4)}>"
+                name += "<" + ",".join(re.findall(r"Lb([01])E",
+                                                  found.group(2))) + ">"
             if name:
                 counts[name] = Counter()
         elif name:
             op = re.search(r"\*/\s+(?:@!?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
             if op:
                 counts[name][op.group(1)] += 1
-    return "; ".join(f"{k}: " + ", ".join(f"{o} {c[o]}" for o in SASS_OPS)
-                     for k, c in counts.items())
+    return "; ".join(f"{k}: {sum(c.values())} instructions, " + ", ".join(
+        f"{o} {c[o]}" for o in SASS_OPS) for k, c in counts.items())
 
 
 def phase_build():
@@ -274,7 +296,7 @@ def phase_build():
     print(f"[2 build] {_build.LIB_PATH.name} built in {secs:.2f} s from "
           f"{len(_build._sources())} sources ({_ptxas_usage(log)})",
           flush=True)
-    print(f"[2 build] SASS opcodes of the packed-row kernels: "
+    print(f"[2 build] SASS of the kernels: "
           f"{_sass_mix(str(_build.LIB_PATH))}", flush=True)
 
 
@@ -328,10 +350,12 @@ def phase_kernel_vs_ref():
               f"{int((~same).sum())} lanes differ in success/iterations "
               f"(agree {agree:.6f}, bound {AGREE_MIN}); max |bits diff| on "
               f"agreeing successful lanes {bit_err}; FER kernel {fer_k:.4f} "
-              f"ref {fer_r:.4f}; kernel {ms:.3f} ms, bp_ref {plain_ms:.3f} ms "
-              f"per {LANES}-lane decode", flush=True)
+              f"ref {fer_r:.4f}; average iterations "
+              f"{ki.float().mean().item():.3f}; kernel {ms:.3f} ms, bp_ref "
+              f"{plain_ms:.3f} ms per {LANES}-lane decode", flush=True)
         if agree < AGREE_MIN or bit_err != 0:
             raise AssertionError(f"kernel disagrees with bp_ref at SNR {snr}")
+
         # bytes: the LLRs in, bits, flag and count out; operations: two phi
         # per edge and iteration run, each a logf and a tanhf
         edges, iters = int(h.sum()), int(ki.sum())
@@ -339,6 +363,36 @@ def phase_kernel_vs_ref():
                      "lanes_differ": int((~same).sum()), "library_ms": None,
                      **_bound(llr.numel() * 5 + LANES * 5,
                               4 * edges * iters, SFU_OPS_PER_S)}
+
+    # minsum and fixed_iters run on the card through decode_batch (the plain
+    # decode), held to the same decoder on the CPU by the kernel's rule
+    _, llr = channel_llr(cw[:VARIANT_LANES], SNRS[0], 11,
+                         trials[:VARIANT_LANES])
+    for variant, fixed in (("minsum", False), ("sumprod", True)):
+        kw = dict(max_iter=MAX_ITER, variant=variant, fixed_iters=fixed)
+        before = bp_kernel.LAUNCHES
+        t0 = time.perf_counter()
+        got = BPDecoder(h, **kw, device=dev).decode_batch(llr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cpu = BPDecoder(h, **kw, device="cpu").decode_batch(llr.cpu())
+        same = ((got.success.cpu() == cpu.success)
+                & (got.iterations.cpu() == cpu.iterations))
+        both = same & cpu.success
+        bits_same = torch.equal(got.bits.cpu()[both], cpu.bits[both])
+        exact = all(torch.equal(u.cpu(), v) for u, v in zip(got[:3], cpu[:3]))
+        agree = same.float().mean().item()
+        print(f"[3 kernel-vs-ref] BPDecoder variant {variant}, fixed_iters "
+              f"{fixed}, {VARIANT_LANES} lanes at {SNRS[0]:+.1f} dB on the "
+              f"card: {int((~same).sum())} lanes differ from the CPU in "
+              f"success/iterations (agree {agree:.6f}, bound {AGREE_MIN}); "
+              f"bits equal on agreeing successful lanes {bits_same}; all "
+              f"outputs bit-identical {exact}; successes "
+              f"{int(got.success.sum())}; bp_decode launches "
+              f"{bp_kernel.LAUNCHES - before}; {secs:.3f} s", flush=True)
+        if agree < AGREE_MIN or not bits_same:
+            raise AssertionError(f"BP {variant} fixed_iters={fixed} on the "
+                                 f"card disagrees with the CPU")
     return rows
 
 
@@ -452,27 +506,19 @@ def _alp_llrs(g, lanes, seed):
     return llr
 
 
-def phase_pdhg_vs_ref():
+def _pdhg_tiers(n, shapes, gen, inactive):
+    """Phase 5's random LPs at width ``n``: random signed rows in a buffer
+    as deep as the last tier, each tier a row slice of it, rows past 5T/8
+    zero with rhs 0; kernel against twin at each tier, ``average`` off and
+    on, then the flag test. Returns one row per (tier, average)."""
     import torch
-    from ldpc_tpu_torch import bench
-    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
-    from ldpc_tpu_torch.codes.io import read_pcm
-    from ldpc_tpu_torch.decoders.alp import ALPDecoder
     from ldpc_tpu_torch.ops import pdhg_kernel
     from ldpc_tpu_torch.ops.lp_solver import pdhg_steps
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(5)
-    n = 280
-    inactive = torch.arange(ALP_LANES, device=dev) % 3 == 0
-    tiers = []
-    # random signed rows in a buffer of the path's capacity, each tier a
-    # row slice of it; rows past 5T/8 zero with rhs 0
-    a_buf = torch.randint(-1, 2, (ALP_LANES, PDHG_TIERS[-1], n),
+    dev = inactive.device
+    out = []
+    a_buf = torch.randint(-1, 2, (ALP_LANES, shapes[-1], n),
                           generator=gen, device=dev).float()
-    for t in PDHG_TIERS:
+    for t in shapes:
         rows = t * 5 // 8
         c = torch.randn((ALP_LANES, n), generator=gen, device=dev)
         a = a_buf.clone()[:, :t]
@@ -491,8 +537,29 @@ def phase_pdhg_vs_ref():
                 f"{plan['row_groups']} row groups, {plan['threads']} "
                 f"threads, {plan['smem_bytes']} B shared", args, ~inactive,
                 average)
-            tiers.append({**row, **plan})
+            out.append({**row, **plan, "n": n})
         _pdhg_flags(args, ~inactive)
+        del a, args
+    return out
+
+
+def phase_pdhg_vs_ref():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.decoders.alp import ALPDecoder
+    from ldpc_tpu_torch.ops.lp_solver import pdhg_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    inactive = torch.arange(ALP_LANES, device=dev) % 3 == 0
+    tiers = []
+    for n, shapes in ((280, PDHG_TIERS), (H02_N, H02_PDHG_TIERS)):
+        tiers += _pdhg_tiers(n, shapes, gen, inactive)
+    n = 280
     # the real cut buffers of an ALP batch after its third round
     h = read_pcm(str(bench.MATRIX))
     g, _ = gf2_nullspace(h)
@@ -962,6 +1029,15 @@ def phase_agc_kernels_vs_ref():
     rows["chol_diag_inv"][-1].update(library_ms=None, **_bound(
         3 * 4 * blocks.numel(), (AGC_LANES + 1) * 2 * nb ** 3 / 3,
         F32_OPS_PER_S))
+    # a kernel of microseconds: beside its time by events (``ms``, as in
+    # earlier runs) its device time as a CUDA graph of calls, without the
+    # host's cost of each launch
+    chol_row = rows["chol_diag_inv"][-1]
+    chol_row["device_ms"] = _graph_ms(chol_diag_inv, [(blocks,)] * WARM_CALLS)
+    print(f"[7 agc-kernels] chol_diag_inv {chol_row['ms']:.5f} ms by events, "
+          f"{chol_row['device_ms']:.5f} ms of device time (CUDA graph) per "
+          f"call; bound {chol_row['bound_ms']:.5f} ms by "
+          f"{chol_row['bound_by']}", flush=True)
 
     # the whole blocked factor and solve on a real normal matrix
     r = torch.randn((AGC_LANES, n), generator=gen, device=dev)
@@ -1097,6 +1173,50 @@ def phase_agc_path():
     return launches, tiers
 
 
+def phase_h02_alp():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps.benchmark import run_sweep
+    from ldpc_tpu_torch.config import SweepConfig
+    from ldpc_tpu_torch.ops import pdhg_kernel
+
+    dev = torch.device("cuda")
+    cfg = SweepConfig(matrix=str(bench.MATRIX.parent / "H02.txt"),
+                      decoders=("alp",), snrs=(H02_SNR,), trials=H02_TRIALS,
+                      batch_size=H02_TRIALS,
+                      report="build/chip_smoke_h02.csv",
+                      extended_report="build/chip_smoke_h02_extended.csv")
+    os.makedirs("build", exist_ok=True)
+    pdhg_kernel.LAUNCHES = 0
+    pdhg_kernel.reset_tier_counts()
+    t0 = time.perf_counter()
+    rows = run_sweep(cfg, device=dev)
+    secs = time.perf_counter() - t0
+    launches = pdhg_kernel.LAUNCHES
+    tiers = dict(sorted(pdhg_kernel.TIER_LAUNCHES.items()))
+    res = rows[0][2]
+    print(f"[9 h02 alp] run_sweep alp on H02 (520x640) {H02_SNR} dB, "
+          f"{res.total} trials in one batch: {res.throughput:.1f} cw/s, FER "
+          f"{res.fer:.4f} (no golden FER for H02), average rounds "
+          f"{res.sum_iterations / res.total:.3f}, dropped {res.sum_dropped}, "
+          f"pdhg_chunk launches {launches}, {secs:.2f} s with warm-up",
+          flush=True)
+    blocks = {t: pdhg_kernel.kernel_plan(H02_N, t)["blocks_per_lane"]
+              for t in tiers}
+    print(f"[9 h02 alp] pdhg_chunk launches per row tier T: {tiers}; blocks "
+          f"per lane by T: {blocks}", flush=True)
+    if launches <= 0 or sum(tiers.values()) != launches or max(tiers) < 640:
+        raise AssertionError(f"ALP on H02 did not launch the PDHG kernel at "
+                             f"T >= 640: {tiers}")
+    if res.total != H02_TRIALS or res.sum_dropped != 0:
+        raise AssertionError(f"ALP on H02: {res.total} trials, "
+                             f"{res.sum_dropped} cuts dropped")
+    if not (0.0 <= res.fer <= 1.0 and 0.0 < res.throughput < float("inf")):
+        raise AssertionError(f"ALP on H02: FER {res.fer}, throughput "
+                             f"{res.throughput}")
+    return launches, tiers
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -1124,6 +1244,7 @@ def main() -> int:
     pdhg_launches, pdhg_tiers = _timed("6 alp path", phase_alp_path)
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
     agc_launches, tiers = _timed("8 agc path", phase_agc_path)
+    h02_launches, h02_tiers = _timed("9 h02 alp", phase_h02_alp)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -1140,7 +1261,8 @@ def main() -> int:
         "replaces": "ldpc_tpu/ops/pallas/pdhg_kernel.py:72",
         "launches": pdhg_launches, **{k: pdhg[k] for k in keys},
         "shape": pdhg["shape"], "launches_per_tier": pdhg_tiers,
-        "tiers": pdhg["tiers"],
+        "tiers": pdhg["tiers"], "h02_launches": h02_launches,
+        "h02_launches_per_tier": h02_tiers,
     }]
     # the AGC-ALP kernels: the largest error over the shapes checked; the
     # times at the deepest shape, for the matvecs at the tier of their worst
@@ -1188,6 +1310,8 @@ def main() -> int:
         else:
             row = _worst_and_last(agc_rows[name])
             entry.update({k: row[k] for k in keys}, shape=row["shape"])
+            if "device_ms" in row:
+                entry["device_ms"] = row["device_ms"]
         kernels.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,8 @@ class DecoderConfig:
     bp_max_iter: int = 100
     bp_variant: str = "sumprod"          # or "minsum"
     # JAX's BP layout (edge | dense | mxu | pallas); accepted and unused
-    # here: the port's BP runs bp_ref on the CPU and the kernel on CUDA
+    # here: the port's BP runs the kernel for early-exit sumprod on CUDA
+    # and bp_ref for everything else
     bp_layout: str = "mxu"
     admm_alpha: float = 1.2              # OPTIMAL config (main.cpp:30)
     admm_mu: float = 0.55

@@ -45,14 +45,17 @@
 //     two blocks' slices fit (T <= 256 at n = 280, at most 512 threads each,
 //     so the batch's 256 lanes are one wave on 132 SMs), else one block of
 //     up to 32 row groups per SM;
-//   - a slice that does not fit one block (T = 896: 252 KB) is split over a
-//     cluster of two blocks, each holding half the rows and the duals of
-//     its rows, both holding x. Each step the two partial A^T y are added
-//     through distributed shared memory in rank order, so both blocks
-//     compute the same x bit for bit; one cluster barrier per step, the
-//     partials double-buffered. The error's row terms are exchanged the
-//     same way. The slice is still read from device memory once. A shape
-//     that fits neither way is refused by the wrapper;
+//   - a slice that does not fit one block (T = 896 at n = 280: 252 KB; at
+//     n = 640 every T >= 640) is split over a cluster of 2, 4 or 8 blocks
+//     (8 is the portable limit), each holding its share of the rows and
+//     the duals of its rows, every block holding x. Each step the partial
+//     A^T y of all ranks are added through distributed shared memory in
+//     rank order, so every block computes the same x bit for bit; one
+//     cluster barrier per step, the partials double-buffered. The error's
+//     row terms are combined the same way, in rank order. The slice is
+//     still read from device memory once. At n = 640 a cluster of 8 holds
+//     T = 2176 in 272 rows per block. A shape that fits no cluster of 8 is
+//     refused by the wrapper;
 //   - an inactive lane (per lane, not per group) copies x and y through and
 //     writes error 0 and flag 0 without reading A.
 //
@@ -83,6 +86,7 @@ constexpr int kMinGroups = 4;       // fewer is refused
 constexpr int kMinGroupsShared = 16;  // fewer, and an SM takes one block
 constexpr int kScratch = 32;        // one float per warp for block reductions
 constexpr int kXch = 8;             // cluster exchange slots (two errors)
+constexpr int kMaxCluster = 8;      // blocks per lane at most (portable)
 constexpr int kDefaultSmemLimit = 48 * 1024;
 constexpr int kBlockReserve = 1024;  // shared memory the system keeps per block
 constexpr float kMagic = 8388736.0f;  // 2^23 + 128, see gemv.cu
@@ -179,9 +183,13 @@ __device__ __forceinline__ void at_y(const Lane& k, const float* yv, int* par,
     }
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
-    const float* p0 = cluster.map_shared_rank(mine, 0);
-    const float* p1 = cluster.map_shared_rank(mine, 1);
-    for (int j = threadIdx.x; j < k.n; j += blockDim.x) f(j, p0[j] + p1[j]);
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    for (int j = threadIdx.x; j < k.n; j += blockDim.x) {
+      float sum = cluster.map_shared_rank(mine, 0)[j];
+      for (int q = 1; q < ranks; ++q)
+        sum += cluster.map_shared_rank(mine, q)[j];
+      f(j, sum);
+    }
     *par ^= 1;
   } else {
     for (int j = threadIdx.x; j < k.n; j += blockDim.x) {
@@ -245,7 +253,8 @@ __device__ __forceinline__ void a_x(const Lane& k, const float* xv, F&& f) {
 // max(max(A x - b, 0), (pobj - dobj) / (1 + |pobj| + |dobj|)) of one lane,
 // with pobj = c.x and dobj = -b.y + sum(min(c + A^T y, 0)). In a cluster
 // the row terms (violation, b.y and the block's `bad` flag) are exchanged
-// through slots `xch[0..3)`; *bad becomes the lane's flag.
+// through slots `xch[0..3)` and combined in rank order; *bad becomes the
+// lane's flag.
 template <bool kCluster>
 __device__ float lane_err(const Lane& k, const float* xv, const float* yv,
                           int* par, float* xch, float* bad) {
@@ -271,11 +280,17 @@ __device__ float lane_err(const Lane& k, const float* xv, const float* yv,
     }
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
+    const int ranks = static_cast<int>(cluster.num_blocks());
     const float* x0 = cluster.map_shared_rank(xch, 0);
-    const float* x1 = cluster.map_shared_rank(xch, 1);
-    viol = fmaxf(x0[0], x1[0]);
-    by = x0[1] + x1[1];
-    *bad = fmaxf(x0[2], x1[2]);
+    viol = x0[0];
+    by = x0[1];
+    *bad = x0[2];
+    for (int q = 1; q < ranks; ++q) {
+      const float* xq = cluster.map_shared_rank(xch, q);
+      viol = fmaxf(viol, xq[0]);
+      by += xq[1];
+      *bad = fmaxf(*bad, xq[2]);
+    }
   }
   const float dobj = -by + rc_neg;
   const float gap = (pobj - dobj) / (1.f + fabsf(pobj) + fabsf(dobj));
@@ -294,8 +309,8 @@ __device__ __forceinline__ uint32_t byte_of(float v) {
 // c, tau, x_in, x_out (B, n); a (B, T, n) float32 with lane stride
 // `lane_stride` elements and rows contiguous; b, sigma, y_in, y_out (B, T);
 // active (B,) bytes or null; err (B,); flag (B,) int32. A lane is blockIdx.x
-// / cluster size; block `rank` of a cluster holds rows [rank * tb,
-// min(t, (rank + 1) * tb)).
+// / cluster size; block `rank` (blockIdx.x % cluster size) of a cluster
+// holds rows [rank * tb, min(t, (rank + 1) * tb)), possibly none.
 template <bool kAverage, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 pdhg_chunk_kernel(const float* __restrict__ c, const float* __restrict__ a,
@@ -309,12 +324,14 @@ pdhg_chunk_kernel(const float* __restrict__ c, const float* __restrict__ a,
                   int n, int t, int tb, int groups, long long lane_stride,
                   int iters) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int rank = kCluster ? static_cast<int>(blockIdx.x & 1) : 0;
-  const size_t l = kCluster ? blockIdx.x >> 1 : blockIdx.x;
+  const int ranks =
+      kCluster ? static_cast<int>(cg::this_cluster().num_blocks()) : 1;
+  const int rank = static_cast<int>(blockIdx.x % ranks);
+  const size_t l = blockIdx.x / ranks;
   const int r_lo = rank * tb;
   const int rows = max(0, min(t, r_lo + tb) - r_lo);
   const size_t vn = l * n, vt = l * t + r_lo;
-  // both blocks of a cluster leave here together, before any cluster barrier
+  // all blocks of a cluster leave here together, before any cluster barrier
   if (active != nullptr && active[l] == 0) {
     if (rank == 0)
       for (int j = tid; j < n; j += nt) x_out[vn + j] = x_in[vn + j];
@@ -448,12 +465,13 @@ pdhg_chunk_kernel(const float* __restrict__ c, const float* __restrict__ a,
     err_out[l] = e;
     flag_out[l] = bad != 0.f ? 1 : 0;
   }
-  // a block's shared memory must outlive the other block's reads of it
+  // a block's shared memory must outlive the other blocks' reads of it
   if (kCluster) cg::this_cluster().sync();
 }
 
-// How a shape is laid out: blocks per lane (1, or a cluster of 2), rows per
-// block, row groups and threads per block, dynamic shared memory per block.
+// How a shape is laid out: blocks per lane (1, or a cluster of 2, 4 or 8),
+// rows per block, row groups and threads per block, dynamic shared memory
+// per block.
 struct Plan {
   int cluster, rows, groups, threads;
   long long smem;
@@ -484,13 +502,14 @@ Plan make_plan(int n_pad, int rows, int cluster, int groups, int average) {
 // and whose SMs hold `per_sm`. The rule, first that fits: one block per lane
 // and two blocks per SM (each at most half the SM's threads and memory) when
 // that leaves at least kMinGroupsShared row groups; one block per lane and
-// SM; a cluster of two blocks per lane, half the rows each. False when
-// nothing fits; *plan is then the smallest layout, for the caller's message.
+// SM; a cluster of 2, then 4, then 8 blocks per lane, the rows split evenly.
+// False when nothing fits; *plan is then the smallest layout (a cluster of
+// kMaxCluster), for the caller's message.
 bool plan_for(int n, int t, int average, long long limit, long long per_sm,
               Plan* plan) {
   const int n_pad = (n + kSeg - 1) / kSeg * kSeg;
   const int segs = n_pad / kSeg;
-  for (int cluster = 1; cluster <= 2; ++cluster) {
+  for (int cluster = 1; cluster <= kMaxCluster; cluster *= 2) {
     const int rows = (t + cluster - 1) / cluster;
     const long long fixed = fixed_bytes(n_pad, rows, cluster, average);
     for (int per = cluster == 1 ? 2 : 1; per >= 1; --per) {
@@ -507,7 +526,8 @@ bool plan_for(int n, int t, int average, long long limit, long long per_sm,
       }
     }
   }
-  *plan = make_plan(n_pad, (t + 1) / 2, 2, kMinGroups, average);
+  *plan = make_plan(n_pad, (t + kMaxCluster - 1) / kMaxCluster, kMaxCluster,
+                    kMinGroups, average);
   return false;
 }
 

@@ -3,13 +3,15 @@
 ``BPDecoder`` holds the Tanner-graph tables of one H as buffers and picks the
 implementation by the device of the LLRs it is given:
 
-* a CPU tensor goes to the plain PyTorch decode, :mod:`..ops.bp_ref`
-  (``sumprod`` or ``minsum``, with or without ``fixed_iters``);
-* a CUDA tensor goes to the fused CUDA kernel, :mod:`..ops.bp_kernel`, which
-  implements early-exit ``sumprod`` only; anything else raises
-  ``NotImplementedError``, as the JAX Pallas layout does for ``minsum``.
+* on a CUDA tensor, early-exit ``sumprod`` goes to the fused CUDA kernel,
+  :mod:`..ops.bp_kernel`;
+* everything else, ``minsum`` and ``fixed_iters`` on the card and every
+  variant on the CPU, goes to the plain PyTorch decode, :mod:`..ops.bp_ref`.
 
-There is no other route and no fallback between the two.
+This is the JAX package's own split: its Pallas kernel does early-exit
+sum-product, and its XLA layouts (the default ``mxu``) serve ``minsum`` and
+``fixed_iters`` on the accelerator. The route is fixed by the variant and the
+device; nothing falls back from the kernel to the plain decode.
 """
 from __future__ import annotations
 
@@ -56,15 +58,13 @@ class BPDecoder(nn.Module):
         if llrs.device != self.row_col.device:
             raise ValueError(f"llrs on {llrs.device}, decoder on "
                              f"{self.row_col.device}")
-        if llrs.device.type == "cuda":
-            if self.variant != "sumprod" or self.fixed_iters:
-                raise NotImplementedError(
-                    "the CUDA BP kernel implements early-exit sumprod only")
+        if llrs.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no BP implementation for {llrs.device}")
+        if (llrs.device.type == "cuda" and self.variant == "sumprod"
+                and not self.fixed_iters):
             bits, success, iters = bp_kernel.bp_decode(
                 llrs, self.row_col, self.col_from_row, self.max_iter)
             return DecodeResult(bits=bits, success=success, iterations=iters)
-        if llrs.device.type != "cpu":
-            raise ValueError(f"no BP implementation for {llrs.device}")
         return bp_decode_ref(llrs, self.row_col, self.row_mask,
                              self.col_mask, self.row_from_col,
                              self.col_from_row, self.max_iter, self.variant,

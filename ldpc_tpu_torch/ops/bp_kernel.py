@@ -6,6 +6,11 @@ stream without synchronising. It takes CUDA tensors only: the plain PyTorch
 twin is :func:`ldpc_tpu_torch.ops.bp_ref.bp_decode_ref`, and
 ``decoders.bp.BPDecoder`` picks between the two by the tensor's device.
 
+The kernel decodes one codeword per thread block, its threads set by the
+code's shape in the source (chosen from variant builds timed on the H100,
+``PERF.md``). It takes row degrees up to 32 and codes whose ``n`` and
+``m * dc`` fit its 16-bit tables; other shapes are refused.
+
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
 """
@@ -16,6 +21,10 @@ import torch
 from . import _build
 
 LAUNCHES = 0
+# csrc/bp_decode.cu kMaxDc (the sign parity is a 32-bit mask) and kMaxIndex
+# (16-bit table entries)
+_MAX_DC = 32
+_MAX_INDEX = 65535
 
 __all__ = ["bp_decode"]
 
@@ -57,6 +66,12 @@ def bp_decode(llr: torch.Tensor, row_col: torch.Tensor,
                          f" rows, llr has {n} columns")
     if max_iter < 0:
         raise ValueError(f"bp_decode: max_iter must be >= 0, got {max_iter}")
+    if dc > _MAX_DC:
+        raise ValueError(f"bp_decode: row degree {dc} is more than the "
+                         f"kernel's {_MAX_DC}")
+    if max(n, m * dc) > _MAX_INDEX:
+        raise ValueError(f"bp_decode: n = {n} or m * dc = {m * dc} does not "
+                         f"fit the kernel's 16-bit tables")
     dv = col_from_row.shape[1]
     bits = torch.empty((b, n), dtype=torch.uint8, device=dev)
     success = torch.empty((b,), dtype=torch.bool, device=dev)

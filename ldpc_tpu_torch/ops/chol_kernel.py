@@ -9,6 +9,11 @@ anything else raises; nothing falls back. On CUDA the wrapper checks its
 input, allocates the outputs and launches on the current stream without
 synchronising.
 
+The kernel runs one warp per lane, two lanes per block (a constant of the
+source, chosen from variant builds timed on the H100, ``PERF.md``), and
+takes blocks of at most 64 x 64 (the blocked Cholesky's ``nb``); a larger
+``nb`` is refused on the card.
+
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
 """
@@ -20,6 +25,7 @@ from . import _build
 from .chol_ref import chol_diag_inv_ref
 
 LAUNCHES = 0
+_MAX_NB = 64  # csrc/chol_diag_inv.cu kNb
 
 __all__ = ["chol_diag_inv"]
 
@@ -48,18 +54,14 @@ def chol_diag_inv(d: torch.Tensor):
     if not d.is_contiguous():
         raise ValueError("chol_diag_inv: d must be contiguous")
     bsz, nb, _ = d.shape
-    lib = _build.load()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    need = lib.ldpc_chol_diag_inv_smem_bytes(nb)
-    limit = lib.ldpc_smem_optin_limit(index)
-    if need > limit:
-        raise ValueError(f"chol_diag_inv: one block of {nb}x{nb} needs "
-                         f"{need} bytes of shared memory; the card allows "
-                         f"{limit}")
+    if nb > _MAX_NB:
+        raise ValueError(f"chol_diag_inv: the kernel factors blocks of at "
+                         f"most {_MAX_NB} x {_MAX_NB}, got {nb} x {nb}")
     l_out = torch.empty_like(d)
     inv_out = torch.empty_like(d)
     if bsz == 0:
         return l_out, inv_out
+    lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.ldpc_chol_diag_inv(d.data_ptr(), l_out.data_ptr(),

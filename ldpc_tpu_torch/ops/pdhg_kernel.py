@@ -17,9 +17,9 @@ reports per lane. The wrapper returns that report as a fourth value, a (B,)
 bool tensor that is true for an active lane whose slice has another entry
 (that lane's result is wrong; the caller raises, as ``pdhg_box_lp_fused``
 does). On the CPU the same report is made with tensor
-operations. A shape whose slice fits neither one block's shared memory nor a
-cluster of two is refused with ``ValueError`` (:func:`kernel_plan` says how
-a shape is laid out).
+operations. A shape whose slice fits neither one block's shared memory nor
+its share in a cluster of 2, 4 or 8 blocks is refused with ``ValueError``
+(:func:`kernel_plan` says how a shape is laid out).
 
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
 path went through the kernel; ``TIER_LAUNCHES`` counts them by row count T.
@@ -55,9 +55,9 @@ def outside_set(a: torch.Tensor, active=None) -> torch.Tensor:
 
 def kernel_plan(n: int, t: int, average: bool = False) -> dict:
     """How the kernel lays out a (T, n) slice on the current CUDA device:
-    ``fits``, ``blocks_per_lane`` (1, or a cluster of 2 that splits the rows),
-    ``row_groups``, ``threads`` and ``smem_bytes`` per block (for a shape
-    that does not fit, the smallest layout's)."""
+    ``fits``, ``blocks_per_lane`` (1, or a cluster of 2, 4 or 8 that splits
+    the rows), ``row_groups``, ``threads`` and ``smem_bytes`` per block (for
+    a shape that does not fit, the smallest layout's: a cluster of 8)."""
     out = (ctypes.c_longlong * 5)()
     lib = _build.load()
     code = lib.ldpc_pdhg_chunk_plan(n, t, int(average), out)
@@ -130,7 +130,8 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
         plan = kernel_plan(n, t, average)
     if not plan["fits"]:
         limit = lib.ldpc_smem_optin_limit(index)
-        raise ValueError(f"pdhg_chunk: half a lane's slice needs "
+        raise ValueError(f"pdhg_chunk: a lane's slice split over "
+                         f"{plan['blocks_per_lane']} blocks needs "
                          f"{plan['smem_bytes']} bytes of shared memory "
                          f"(n={n}, T={t}, average={average}); the card "
                          f"allows {limit} per block")

@@ -344,3 +344,21 @@ def test_alp_on_card_counts_launches_per_tier(cuda_device):
     assert set(tiers) <= {128, 256, 384, 512, 640, 896}
     assert min(tiers) == 128 and max(tiers) >= 384
     assert int(res.dropped.sum()) == 0
+
+
+@pytest.mark.gpu
+def test_alp_on_h02_on_card_equals_cpu(cuda_device):
+    """ALP on H02 (520 x 640, capacity 2176) at -7 dB, where the cut
+    buffers pass T = 640 and 896 and the PDHG kernel runs as clusters of
+    four blocks per lane: the decode runs to its end with no cut dropped,
+    and its success agrees with the same decoder on the CPU."""
+    h = _h("H02")
+    llrs, _ = _llrs(h, 8, -7.0, seed=3)
+    dec = ALPDecoder(h, device=cuda_device)
+    assert dec.lp_backend == "kernel" and dec.capacity == 2176
+    pdhg_kernel.reset_tier_counts()
+    res = dec.decode_batch(torch.from_numpy(llrs).to(cuda_device))
+    tiers = dict(pdhg_kernel.TIER_LAUNCHES)
+    assert max(tiers) >= 640 and int(res.dropped.sum()) == 0
+    cpu = ALPDecoder(h, device=CPU).decode_batch(torch.from_numpy(llrs))
+    assert (res.success.cpu() == cpu.success).float().mean().item() >= 0.95

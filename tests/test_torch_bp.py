@@ -131,6 +131,27 @@ def test_variants_match_jax_edge(small_h, variant, fixed):
     _assert_same_decode(res, ref.bits, ref.success, ref.iterations)
 
 
+@pytest.mark.parametrize("variant,fixed", [("minsum", False),
+                                           ("sumprod", True),
+                                           ("minsum", True)])
+def test_variants_through_registry_match_jax_mxu(small_h, variant, fixed):
+    """``minsum`` and ``fixed_iters`` as a user builds them: the registry
+    (``bp_variant``) and ``fixed_iters``, held against JAX's default ``mxu``
+    layout in float32, the layout that serves them on the accelerator."""
+    from ldpc_tpu_torch.config import DecoderConfig
+    from ldpc_tpu_torch.decoders import make_decoder
+    llrs, _ = _llrs(small_h, 128, 1.0, seed=17)
+    dec = make_decoder("bp", small_h, DecoderConfig(bp_max_iter=25,
+                                                    bp_variant=variant),
+                       device=CPU)
+    dec.fixed_iters = fixed
+    assert dec.variant == variant
+    ref = _jax_decoder(small_h, "mxu-f32", max_iter=25, variant=variant,
+                       fixed_iters=fixed).decode_batch(jnp.asarray(llrs))
+    res = dec.decode_batch(torch.from_numpy(llrs))
+    _assert_same_decode(res, ref.bits, ref.success, ref.iterations)
+
+
 def test_decoder_from_jax_graph_arrays(opt_h):
     jdec = JBPDecoder(opt_h, layout="edge", max_iter=30)
     graph = CodeGraph.from_arrays(jdec.graph.__dict__)
@@ -206,10 +227,78 @@ def test_kernel_matches_bp_ref_on_card(cuda_device, name, snr):
     assert torch.equal(bits[both], ref.bits[both])
     via_decoder = dec.decode_batch(lam)
     assert torch.equal(via_decoder.success, success)
-    with pytest.raises(NotImplementedError):
-        BPDecoder(h, variant="minsum", device=cuda_device).decode_batch(lam)
+    # minsum runs on the card through bp_ref, as JAX's XLA layouts run it
+    before = bp_kernel.LAUNCHES
+    ms = BPDecoder(h, max_iter=50, variant="minsum",
+                   device=cuda_device).decode_batch(lam)
+    ms_cpu = BPDecoder(h, max_iter=50, variant="minsum",
+                       device=CPU).decode_batch(lam.cpu())
+    assert bp_kernel.LAUNCHES == before
+    for got, want in zip(ms[:3], ms_cpu[:3]):
+        assert torch.equal(got.cpu(), want)
     with pytest.raises(TypeError):
         bp_kernel.bp_decode(lam.double(), dec.row_col, dec.col_from_row, 50)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,fixed", [("minsum", False),
+                                           ("sumprod", True),
+                                           ("minsum", True)])
+def test_variants_on_card_equal_cpu(cuda_device, variant, fixed):
+    """``minsum`` and ``fixed_iters`` decode on the card (through ``bp_ref``,
+    no kernel launch) and equal the same decoder on the CPU."""
+    h = _h("optimalH")
+    llrs, _ = _llrs(h, 300, -1.0, seed=23)
+    kw = dict(max_iter=30, variant=variant, fixed_iters=fixed)
+    before = bp_kernel.LAUNCHES
+    res = BPDecoder(h, **kw, device=cuda_device).decode_batch(
+        torch.from_numpy(llrs).to(cuda_device))
+    torch.cuda.synchronize()
+    assert bp_kernel.LAUNCHES == before
+    ref = BPDecoder(h, **kw, device=CPU).decode_batch(torch.from_numpy(llrs))
+    same = (res.success.cpu() == ref.success) & (
+        res.iterations.cpu() == ref.iterations)
+    assert same.float().mean().item() >= 0.995
+    both = same & ref.success
+    assert torch.equal(res.bits.cpu()[both], ref.bits[both])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["optimalH", "H02"])
+def test_kernel_repeat_and_batch_slices_on_card(cuda_device, name):
+    """A batch that fills no wave evenly: a second call is bit-identical,
+    and a codeword's decode depends on its own LLRs alone, so the first 7
+    lanes decoded alone equal them in the whole batch; one launch per
+    call."""
+    h = _h(name)
+    llrs, _ = _llrs(h, 1003, -1.0, seed=4)
+    dec = BPDecoder(h, max_iter=40, device=cuda_device)
+    lam = torch.from_numpy(llrs).to(cuda_device)
+    before = bp_kernel.LAUNCHES
+    runs = [bp_kernel.bp_decode(lam, dec.row_col, dec.col_from_row, 40)
+            for _ in range(2)]
+    part = bp_kernel.bp_decode(lam[:7].contiguous(), dec.row_col,
+                               dec.col_from_row, 40)
+    torch.cuda.synchronize()
+    assert bp_kernel.LAUNCHES == before + 3
+    for got, want, piece in zip(runs[1], runs[0], part):
+        assert torch.equal(got, want)
+        assert torch.equal(piece, want[:7])
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_shapes_it_cannot_hold_on_card(cuda_device):
+    """A row degree above 32 (the sign parity is a 32-bit mask) is refused
+    before any launch."""
+    h = np.zeros((2, 40), dtype=np.uint8)
+    h[0, :33] = 1
+    h[1, 30:] = 1
+    dec = BPDecoder(h, max_iter=5, device=cuda_device)
+    lam = torch.ones((3, 40), device=cuda_device)
+    before = bp_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="row degree 33"):
+        bp_kernel.bp_decode(lam, dec.row_col, dec.col_from_row, 5)
+    assert bp_kernel.LAUNCHES == before
 
 
 @pytest.mark.gpu

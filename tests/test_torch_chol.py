@@ -173,3 +173,82 @@ def test_kernel_matches_twin_on_card(cuda_device):
     fac = blocked_cholesky(torch.from_numpy(spd(rng, 128, 280)).to(
         cuda_device))
     assert fac.l.shape == (128, 320, 320)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz", [1, 129, 130])
+def test_kernel_batches_on_card(cuda_device, bsz):
+    """One warp per lane, with a batch that fills no block evenly: within
+    1e-4 of the twin's scale, NaN in the non-SPD lane only, L zero above
+    the diagonal and V lower triangular; a second call, and a call on a
+    contiguous view that is not 16-byte aligned (the kernel then reads one
+    float at a time), bit-identical."""
+    rng = np.random.default_rng(bsz)
+    d = spd(rng, bsz, 64, cond_boost=1.0)
+    bad = bsz // 2 if bsz > 1 else None
+    if bad is not None:
+        d[bad] = -np.eye(64, dtype=np.float32)
+    dt = torch.from_numpy(d).to(cuda_device)
+    store = torch.empty(dt.numel() + 1, device=cuda_device)
+    shifted = store[1:].view(dt.shape)
+    shifted.copy_(dt)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    runs = [chol_diag_inv(dt) for _ in range(2)]
+    unaligned = chol_diag_inv(shifted)
+    lr, invr = chol_diag_inv_ref(dt)
+    torch.cuda.synchronize()
+    for got in (runs[1], unaligned):
+        for g, w in zip(got, runs[0]):
+            assert torch.equal(g.nan_to_num(7.0), w.nan_to_num(7.0))
+    l, inv = runs[0]
+    good = torch.ones(bsz, dtype=torch.bool, device=cuda_device)
+    if bad is not None:
+        good[bad] = False
+        assert bool(torch.isnan(l[bad]).any())
+        assert bool(torch.isnan(inv[bad]).any())
+    assert bool(l[good].isfinite().all()) and bool(inv[good].isfinite().all())
+    upper = torch.ones(64, 64, dtype=torch.bool, device=cuda_device).triu(1)
+    assert not bool(l[:, upper].any()) and not bool(inv[:, upper].any())
+    assert float((l - lr)[good].abs().max()) <= 1e-4 * float(
+        lr[good].abs().max())
+    assert float((inv - invr)[good].abs().max()) <= 1e-4 * float(
+        invr[good].abs().max())
+
+
+@pytest.mark.gpu
+def test_kernel_smaller_blocks_and_refusals_on_card(cuda_device):
+    """A block smaller than 64 (padded with the identity inside the
+    kernel) matches the twin; a larger block is refused before any
+    launch."""
+    rng = np.random.default_rng(8)
+    for nb in (1, 37, 40):
+        dt = torch.from_numpy(spd(rng, 5, nb)).to(cuda_device)
+        (l, inv), (lr, invr) = chol_diag_inv(dt), chol_diag_inv_ref(dt)
+        torch.cuda.synchronize()
+        assert float((l - lr).abs().max()) <= 1e-4 * float(lr.abs().max())
+        assert float((inv - invr).abs().max()) <= 1e-4 * float(
+            invr.abs().max())
+    before = chol_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="at most 64"):
+        chol_diag_inv(torch.from_numpy(spd(rng, 2, 65)).to(cuda_device))
+    assert chol_kernel.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_blocked_factor_at_n640_on_card(cuda_device):
+    """H02's width: ten 64-blocks, the factor and solve on the card within
+    tests/test_chol.py's rule of cholesky_ex + cholesky_solve."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    m = torch.from_numpy(spd(rng, 16, 640)).to(cuda_device)
+    r = torch.from_numpy(rng.normal(size=(16, 640)).astype(np.float32)).to(
+        cuda_device)
+    fac = blocked_cholesky(m)
+    assert fac.l.shape == (16, 640, 640) and fac.inv_diag.shape[0] == 10
+    x = blocked_cho_solve(fac, r)
+    x_ref = torch.cholesky_solve(r[..., None], cholesky_nan(m))[..., 0]
+    res = float((torch.bmm(m, x[..., None])[..., 0] - r).abs().max())
+    res_ref = float((torch.bmm(m, x_ref[..., None])[..., 0] - r).abs().max())
+    assert res <= 10 * res_ref + 1e-3
+    assert float((fac.l - cholesky_nan(m)).abs().max()) <= 2e-4 * float(
+        fac.l.abs().max())

@@ -314,7 +314,8 @@ def test_kernels_match_twins_on_card(cuda_device, t):
 @pytest.mark.parametrize("t,bsz,n", [(1, 1, 280), (1, 200, 283),
                                      (63, 3, 283), (63, 1, 280),
                                      (128, 128, 280), (128, 200, 283),
-                                     (1408, 128, 280), (1408, 200, 283)])
+                                     (1408, 128, 280), (1408, 200, 283),
+                                     (640, 128, 640), (2176, 64, 640)])
 def test_packed_matvecs_any_shape_on_card(cuda_device, t, bsz, n):
     """Ragged T, B and n (a lane-strided slice, packed): within the float32
     summation bound of the twins, the same bits on a second call, and one
@@ -348,7 +349,8 @@ def test_packed_matvecs_any_shape_on_card(cuda_device, t, bsz, n):
 @pytest.mark.parametrize("t,bsz,n", [(128, 128, 280), (512, 128, 280),
                                      (1152, 128, 280), (1408, 128, 280),
                                      (63, 3, 283), (1, 2, 280),
-                                     (200, 5, 97)])
+                                     (200, 5, 97), (640, 64, 640),
+                                     (2176, 32, 640)])
 def test_normal_build_tiers_on_card(cuda_device, t, bsz, n):
     """Every reported tier of the AGC-ALP path and shapes ragged in T, B and
     n: the tensor-core kernel on the packed copy within the float32

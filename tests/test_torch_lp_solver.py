@@ -430,3 +430,71 @@ def test_kernel_flags_rows_outside_the_set_on_card(cuda_device, t_rows):
     with pytest.raises(ValueError, match=r"entries in \{-1, 0, 1\}"):
         pdhg_box_lp_fused(c, a, b, x0, y0, 128, tol=1e-9, check_every=64,
                           active=act)
+
+
+def _h02_tiers():
+    """Every row tier ALP solves on H02 (520 x 640): the decoder's tiers and
+    its capacity, 128 ... 2176."""
+    import os
+
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.decoders.alp import ALPDecoder
+    h = read_pcm(os.path.join(os.path.dirname(__file__), "..", "data",
+                              "H02.txt"))
+    dec = ALPDecoder(h, device="cpu")
+    return h.shape[1], (*dec._tiers, dec.capacity)
+
+
+def test_h02_tiers_reach_the_cluster_sizes():
+    """The shapes the n = 640 kernel plans are asked for (the plans
+    themselves need the card)."""
+    n, tiers = _h02_tiers()
+    assert n == 640
+    assert tiers == (128, 256, 384, 512, 640, 896, 1152, 1408, 1664, 1920,
+                     2176)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("average", [False, True])
+def test_kernel_plan_fits_every_h02_tier_on_card(cuda_device, average):
+    """At n = 640 every ALP tier fits: one block to T = 256, then clusters
+    of 2, 4 and 8 blocks per lane (T = 2176 in 272 rows per block), each
+    block within the card's shared memory."""
+    n, tiers = _h02_tiers()
+    props = torch.cuda.get_device_properties(cuda_device)
+    plans = {t: pdhg_kernel.kernel_plan(n, t, average) for t in tiers}
+    assert all(p["fits"] for p in plans.values()), plans
+    assert [plans[t]["blocks_per_lane"] for t in tiers] == [
+        1, 1, 2, 2, 4, 4, 4, 8, 8, 8, 8]
+    assert max(p["smem_bytes"] for p in plans.values()) <= getattr(
+        props, "shared_memory_per_block_optin", 232448)
+    assert not pdhg_kernel.kernel_plan(n, 8 * 2176, average)["fits"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_rows", [640, 896, 2176])
+@pytest.mark.parametrize("average", [False, True])
+def test_kernel_at_n640_matches_twin_on_card(cuda_device, t_rows, average):
+    """H02's width, the tiers that need clusters of 4 and 8: within the
+    bounds of the plain version, inactive lanes passed through, the same
+    bits on a second call, no lane flagged."""
+    dev = cuda_device
+    c, a, b, x0, y0 = (torch.from_numpy(v).to(dev) for v in _random_lp(
+        t_rows + 1, bsz=48, t_rows=t_rows, n=640,
+        active=t_rows * 5 // 8))
+    tau, sigma = pdhg_steps(a)
+    act = torch.arange(48, device=dev) % 3 != 0
+    runs = [pdhg_kernel.pdhg_chunk(c, a, b, tau, sigma, x0, y0, 64,
+                                   active=act, average=average)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for g, w in zip(*runs):
+        assert torch.equal(g, w)
+    x, y, err, flag = runs[0]
+    xr, yr, er = pdhg_chunk_ref(c, a, b, tau, sigma, x0, y0, 64,
+                                active=act, average=average)
+    assert float((x - xr).abs().max()) <= X_TOL
+    assert float((y - yr).abs().max()) <= Y_TOL
+    assert float((err - er).abs().max()) <= ERR_TOL
+    assert torch.equal(x[~act], x0[~act]) and torch.equal(y[~act], y0[~act])
+    assert not bool(flag.any())
