@@ -49,8 +49,12 @@ printing one line before the next starts:
 7. the AGC-ALP path's four kernels against their plain twins on the card,
    at AGC-ALP's shapes (128 lanes, optimalH, capacity 1408 x 280):
    the GF(2) elimination on an AGC-ALP batch's IPM solution after three
-   cut rounds, a third of the lanes inactive (active lanes bit-identical,
-   inactive lanes passed through); A x and A^T y on the packed int8 copy
+   cut rounds, on H02 (520 x 640) in the column order of seeded LP points
+   and on seeded 63 x 283 matrices, a third of the lanes inactive in each
+   (active lanes bit-identical, inactive lanes passed through, a second
+   call bit-identical; device time as a CUDA graph and time by events,
+   beside the first design's 0.226 ms, the bound and the time per column
+   step); A x and A^T y on the packed int8 copy
    (``pack_rows``) of row slices of a (128, 1408, 280) buffer at every row
    tier of the path (T = 128 ... 1408) and on a slice ragged in every
    dimension (3 x 63 x 283), each call bit-identical to a second one, and
@@ -146,6 +150,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 L2_BYTES = 50 * 2 ** 20
 CHOL_TOL = 1e-4
+# the GF(2) elimination: a shape ragged in both dimensions, and the first
+# (row-per-thread) design's time at 128 x 160 x 280 by events (PERF.md §6)
+GAUSS_RAGGED = (63, 283)
+FIRST_GAUSS_MS = 0.226
 AGC_AGREE_MIN = 0.95
 
 
@@ -236,16 +244,24 @@ def _ptxas_usage(log: str) -> str:
     """Registers, spills and shared memory per kernel from ``ptxas -v``."""
     out, name = [], None
     for line in log.splitlines():
-        found = re.search(r"entry function '\w*?([a-z][a-z_]*_kernel)"
-                          r"(I(?:Lb[01]E)+E)?", line)
+        found = re.search(r"entry function '\w*?([a-z][a-z0-9_]*_kernel)"
+                          + TEMPLATE_ARGS, line)
         if found:
-            name = found.group(1) + (
-                "" if found.group(2) is None else
-                "<" + ",".join(re.findall(r"Lb([01])E", found.group(2)))
-                + ">")
+            name = found.group(1) + _template(found.group(2))
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return "; ".join(out)
+
+
+# a kernel's template arguments in its mangled name: bools and ints
+TEMPLATE_ARGS = r"(I(?:L[bi]-?\d+E)+E)?"
+
+
+def _template(mangled) -> str:
+    """``<0,1>`` from ``ILb0ELb1EE``, ``<8>`` from ``ILi8EE``; "" for none."""
+    if mangled is None:
+        return ""
+    return "<" + ",".join(re.findall(r"L[bi](-?\d+)E", mangled)) + ">"
 
 
 SASS_OPS = ("LDS", "LDSM", "PRMT", "LOP3", "FADD", "FFMA", "HMUL2", "HMMA",
@@ -257,8 +273,9 @@ def _sass_mix(lib: str) -> str:
     of the kernels (``cuobjdump -sass``), to read that the int8 unpack of
     the packed-row kernels compiled to PRMT + FADD, that the normal matrix
     runs on the tensor cores (HMMA, fed by LDSM), and how large the unrolled
-    diagonal-block and BP kernels are: the counts cover the whole kernel,
-    not only its loops."""
+    diagonal-block and BP kernels are, and that the GF(2) elimination's
+    block barriers are the two around its column loop (BAR 2): the counts
+    cover the whole kernel, not only its loops."""
     from collections import Counter
 
     from ldpc_tpu_torch.ops import _build
@@ -271,12 +288,10 @@ def _sass_mix(lib: str) -> str:
     for line in sass.splitlines():
         if "Function :" in line:
             found = re.search(r"\d((?:gemv_[a-z_]*|normal_build|pdhg_chunk|"
-                              r"chol_diag_inv|bp_decode)_kernel)"
-                              r"(I(?:Lb[01]E)+E)?", line)
-            name = found.group(1) if found else None
-            if name and found.group(2):
-                name += "<" + ",".join(re.findall(r"Lb([01])E",
-                                                  found.group(2))) + ">"
+                              r"chol_diag_inv|bp_decode|gf2_gauss)_kernel)"
+                              + TEMPLATE_ARGS, line)
+            name = (found.group(1) + _template(found.group(2))
+                    if found else None)
             if name:
                 counts[name] = Counter()
         elif name:
@@ -714,6 +729,99 @@ def _agc_batch(h, g, rounds):
     return dec, st, seen[0]
 
 
+def _permuted(h, u, eps):
+    """H (m, n) on the card in each lane's fractional-first column order of
+    u (B, n): AGC-ALP's input to the elimination."""
+    import torch
+    from ldpc_tpu_torch.ops.gf2_gauss import fractional_column_order
+    bsz, (m, n) = u.shape[0], h.shape
+    idx = fractional_column_order(u, eps)[:, None, :].expand(bsz, m, n)
+    return h.to(torch.uint8).expand(bsz, m, n).gather(2, idx).contiguous()
+
+
+def _gauss_xor_words(h_perm, active):
+    """The 32-bit word XORs the elimination needs on the active lanes, as
+    the twin's loop runs it: for each pivot, the other rows with a 1 in its
+    column at that step, times ceil(n / 32) words of a packed row."""
+    import torch
+    hm = h_perm[active].clone()
+    bsz, m, n = hm.shape
+    rows = torch.arange(m, device=hm.device)
+    rank = torch.zeros((bsz,), dtype=torch.int64, device=hm.device)
+    xors = torch.zeros((), dtype=torch.int64, device=hm.device)
+    for col in range(n):
+        if bsz == 0 or int(rank.min()) >= m:
+            break
+        cand = (hm[:, :, col] == 1) & (rows >= rank[:, None])
+        has = cand.any(dim=1)
+        t = cand.to(torch.uint8).argmax(dim=1)
+        r = rank.clamp_max(m - 1)
+        row_r = hm.gather(1, r[:, None, None].expand(bsz, 1, n))
+        row_t = hm.gather(1, t[:, None, None].expand(bsz, 1, n))
+        oh_r = ((rows == rank[:, None]) & has[:, None])[..., None]
+        oh_t = ((rows == t[:, None]) & has[:, None])[..., None]
+        hm = torch.where(oh_r, row_t, torch.where(oh_t, row_r, hm))
+        elim = (hm[:, :, col] == 1) & ~oh_r[..., 0] & has[:, None]
+        xors += elim.sum()
+        hm = hm ^ (elim[..., None].to(torch.uint8) * row_t)
+        rank = rank + has.to(torch.int64)
+    return int(xors) * -(-n // 32)
+
+
+def _gauss_case(h_perm, active, label, before_ms):
+    """The GF(2) elimination kernel against its twin on one batch: active
+    lanes bit-identical, inactive lanes passed through, a second call
+    bit-identical; its device time (CUDA graph), its time by events, the
+    twin's, and the bound. The kernel's chain is one step per column until
+    a lane's rank reaches m: the columns each active lane processes (the
+    last row's pivot column + 1 for a lane of full rank, else n) give the
+    time per column step, device time over the longest lane's columns."""
+    import torch
+    from ldpc_tpu_torch.ops.gauss_kernel import gauss_plan, gf2_eliminate
+    from ldpc_tpu_torch.ops.gf2_gauss import gf2_eliminate_ordered
+
+    bsz, m, n = h_perm.shape
+    got, want = gf2_eliminate(h_perm, active), gf2_eliminate_ordered(h_perm)
+    again = gf2_eliminate(h_perm, active)
+    torch.cuda.synchronize()
+    bad = int((got[active] != want[active]).sum())
+    through = torch.equal(got[~active], h_perm[~active])
+    repeat = torch.equal(again, got)
+    ranks = got[active].any(dim=2).sum(dim=1)
+    last_pivot = got[active][:, m - 1, :].to(torch.int32).argmax(dim=1)
+    cols = torch.where(ranks == m, last_pivot + 1, n)
+    row = {"max_abs_err": float(bad), "shape": label,
+           "ms": _time_ms(lambda: gf2_eliminate(h_perm, active)),
+           "plain_ms": _time_ms(lambda: gf2_eliminate_ordered(h_perm)),
+           "device_ms": _graph_ms(gf2_eliminate,
+                                  [(h_perm, active)] * WARM_CALLS),
+           "library_ms": None,
+           "columns_mean": float(cols.float().mean()),
+           "columns_max": int(cols.max())}
+    # bytes: H in and out once and the flags; operations: the word XORs of
+    # the row reduction on packed rows that this batch needs
+    row.update(_bound(2 * h_perm.numel() + active.numel(),
+                      _gauss_xor_words(h_perm, active), INT32_OPS_PER_S))
+    row["ns_per_column"] = row["device_ms"] * 1e6 / row["columns_max"]
+    plan = gauss_plan(m, n)
+    print(f"[7 agc-kernels] gf2_eliminate, {label}: {bad} entries differ "
+          f"on {int(active.sum())} active lanes, {bsz - int(active.sum())} "
+          f"inactive lanes passed through: {through}, repeat bit-identical: "
+          f"{repeat}; kernel {row['device_ms']:.5f} ms of device time (CUDA "
+          f"graph), {row['ms']:.5f} ms by events"
+          + ("" if before_ms is None else
+             f" (the first, row-per-thread design: {before_ms} ms by events)")
+          + f", twin {row['plain_ms']:.3f} ms; bound {row['bound_ms']:.5f} "
+          f"ms by {row['bound_by']}, {row['bound_ms'] / row['device_ms']:.4f}"
+          f" of it; columns per active lane {row['columns_mean']:.1f} mean, "
+          f"{row['columns_max']} max: {row['ns_per_column']:.1f} ns per "
+          f"column step; plan {plan}", flush=True)
+    if bad or not through or not repeat:
+        raise AssertionError(f"gf2_eliminate disagrees with its twin "
+                             f"({label})")
+    return row
+
+
 def _copies(t, nbytes):
     """``t`` and enough copies of it that together they fill twice the L2."""
     return [t] + [t.clone() for _ in range(-(-2 * L2_BYTES // nbytes))]
@@ -940,9 +1048,6 @@ def phase_agc_kernels_vs_ref():
     from ldpc_tpu_torch.ops.chol import blocked_cho_solve, blocked_cholesky
     from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv
     from ldpc_tpu_torch.ops.chol_ref import chol_diag_inv_ref, cholesky_nan
-    from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
-    from ldpc_tpu_torch.ops.gf2_gauss import (fractional_column_order,
-                                              gf2_eliminate_ordered)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -963,38 +1068,31 @@ def phase_agc_kernels_vs_ref():
                                           "plain_ms": plain_ms,
                                           "shape": shape})
 
-    # the GF(2) elimination on a real IPM solution
+    # the GF(2) elimination on a real IPM solution, on H02 and on a ragged
+    # shape, a third of the lanes inactive in each
     dec, st, m_real = _agc_batch(h, g, 3)
     u = st["x"]
     frac = ((u >= dec.gauss_eps) & (u <= 1.0 - dec.gauss_eps)).sum(dim=1)
-    p = fractional_column_order(u, dec.gauss_eps)
-    idx = p[:, None, :].expand(AGC_LANES, m_rows, n)
-    h_perm = dec.h.expand(AGC_LANES, m_rows, n).gather(2, idx).contiguous()
     active = torch.arange(AGC_LANES, device=dev) % 3 != 0
-
-    def gauss():
-        return gf2_eliminate(h_perm, active)
-
-    def gauss_ref():
-        return gf2_eliminate_ordered(h_perm)
-
-    got, want = gauss(), gauss_ref()
-    torch.cuda.synchronize()
-    bad = int((got[active] != want[active]).sum())
-    through = torch.equal(got[~active], h_perm[~active])
-    report("gf2_eliminate",
-           f"{AGC_LANES}x{m_rows}x{n} after 3 rounds (fractional columns "
-           f"per lane {frac.float().mean().item():.1f}), {bad} entries "
-           f"differ on {int(active.sum())} active lanes, "
-           f"{int((~active).sum())} inactive lanes passed through: {through}",
-           float(bad), bad == 0 and through, gauss, gauss_ref,
-           f"{AGC_LANES}x{m_rows}x{n} uint8, optimalH, IPM solution after 3 "
-           f"cut rounds at -3 dB, a third of the lanes inactive")
-    # bytes: H in and out once; operations: one XOR of 32 packed columns per
-    # (pivot, row, word) on the active lanes
-    rows["gf2_eliminate"][-1].update(library_ms=None, **_bound(
-        2 * h_perm.numel() + active.numel(),
-        int(active.sum()) * m_rows * m_rows * -(-n // 32), INT32_OPS_PER_S))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h02 = torch.from_numpy(read_pcm(str(bench.MATRIX.parent / "H02.txt")))
+    u02 = torch.rand((AGC_LANES, h02.shape[1]), generator=gen, device=dev)
+    u02[torch.rand(u02.shape, generator=gen, device=dev) < 0.25] = 0.0
+    u02[torch.rand(u02.shape, generator=gen, device=dev) < 0.05] = 1.0
+    ragged = (torch.rand((AGC_LANES, *GAUSS_RAGGED), generator=gen,
+                         device=dev) < 0.1).to(torch.uint8)
+    rows["gf2_eliminate"] = [
+        _gauss_case(_permuted(dec.h, u, dec.gauss_eps), active,
+                    f"optimalH {AGC_LANES}x{m_rows}x{n} uint8, IPM solution "
+                    f"after 3 cut rounds at -3 dB (fractional columns per "
+                    f"lane {frac.float().mean().item():.1f})", FIRST_GAUSS_MS),
+        _gauss_case(_permuted(h02.to(dev), u02, dec.gauss_eps), active,
+                    f"H02 {AGC_LANES}x{h02.shape[0]}x{h02.shape[1]} uint8, "
+                    f"seeded LP points", None),
+        _gauss_case(ragged, active,
+                    f"ragged {AGC_LANES}x{GAUSS_RAGGED[0]}x"
+                    f"{GAUSS_RAGGED[1]} uint8, seeded entries 1 with "
+                    f"probability 0.1", None)]
 
     # A x, A^T y and the normal matrix on the packed copy of row slices of
     # a full buffer
@@ -1279,7 +1377,17 @@ def main() -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
                  "launches": agc_launches[name]}
-        if name == "normal_build":
+        if name == "gf2_eliminate":
+            # the largest error over the three shapes; the times at the
+            # path's shape (optimalH), the other shapes' beside them
+            row = agc_rows[name][0]
+            entry.update({k: row[k] for k in keys}, shape=row["shape"],
+                         device_ms=row["device_ms"],
+                         ns_per_column=row["ns_per_column"],
+                         shapes=agc_rows[name])
+            entry["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in agc_rows[name])
+        elif name == "normal_build":
             # the largest error over the tiers and the ragged slice; the
             # times at the deepest tier, with a cold L2
             row = _worst_and_last(agc_rows[name])

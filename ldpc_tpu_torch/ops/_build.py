@@ -120,10 +120,8 @@ def load() -> ctypes.CDLL:
             lib.ldpc_normal_build.restype = i
             lib.ldpc_chol_diag_inv.argtypes = [p, p, p, i, i, p]
             lib.ldpc_chol_diag_inv.restype = i
-            lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, p]
+            lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.ldpc_gf2_gauss.restype = i
-            lib.ldpc_gf2_gauss_smem_bytes.argtypes = [i, i]
-            lib.ldpc_gf2_gauss_smem_bytes.restype = ll
             lib.ldpc_smem_optin_limit.argtypes = [i]
             lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]

@@ -15,7 +15,7 @@ import torch
 
 from ldpc_tpu_torch.codes.io import read_pcm
 from ldpc_tpu_torch.ops import gauss_kernel
-from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
+from ldpc_tpu_torch.ops.gauss_kernel import gauss_plan, gf2_eliminate
 from ldpc_tpu_torch.ops.gauss_ref import gf2_eliminate_ref
 from ldpc_tpu_torch.ops.gf2_gauss import (calculate_gauss_batched,
                                           fractional_column_order,
@@ -129,6 +129,134 @@ def test_calculate_gauss_matches_scalar_oracle(small_h):
                                 torch.from_numpy(u), backend="pallas")
 
 
+def _code_lanes(name, bsz, seed):
+    """``bsz`` lanes of a code's H in the column order of LP points from
+    ``_u``, as AGC-ALP hands them to the elimination."""
+    h = _h(name)
+    u = _u(np.random.default_rng(seed), max(bsz, 4), h.shape[1])[:bsz]
+    p = fractional_column_order(torch.from_numpy(u)).numpy()
+    return np.ascontiguousarray(
+        np.stack([h[:, p[b]] for b in range(bsz)]), dtype=np.uint8)
+
+
+def _bernoulli(rng, bsz, m, n, density):
+    return (rng.uniform(size=(bsz, m, n)) < density).astype(np.uint8)
+
+
+def _rank_deficient(rng, bsz, m, n, rank):
+    """Rows that are GF(2) sums of ``rank`` base rows, and every seventh
+    column zero: no lane's rank reaches m."""
+    coef = _bernoulli(rng, bsz, m, rank, 0.5).astype(np.int64)
+    base = _bernoulli(rng, bsz, rank, n, 0.5).astype(np.int64)
+    out = (coef @ base % 2).astype(np.uint8)
+    out[:, :, ::7] = 0
+    return out
+
+
+def _early_saturation(rng, bsz, m, n):
+    """Lane 0 is [I | random]: its rank reaches m at column m - 1. Lane 1
+    is zero (rank 0); the rest are dense and saturate a few columns after
+    m."""
+    out = _bernoulli(rng, bsz, m, n, 0.5)
+    out[0, :, :m] = np.eye(m, dtype=np.uint8)
+    out[1] = 0
+    return out
+
+
+def _third_off(bsz):
+    return np.arange(bsz) % 3 != 0
+
+
+# name -> (h_perm (B, m, n) uint8, active (B,) bool), made from a seed
+_CASES = {
+    "optimalH": lambda: (_code_lanes("optimalH", 128, 6), _third_off(128)),
+    "H02": lambda: (_code_lanes("H02", 128, 6), _third_off(128)),
+    "ragged-37x70": lambda: (
+        _bernoulli(np.random.default_rng(37), 64, 37, 70, 0.3),
+        _third_off(64)),
+    "ragged-63x283": lambda: (
+        _bernoulli(np.random.default_rng(63), 64, 63, 283, 0.1),
+        _third_off(64)),
+    "tall-70x37": lambda: (
+        _bernoulli(np.random.default_rng(70), 32, 70, 37, 0.5),
+        _third_off(32)),
+    "rank-deficient-96x200": lambda: (
+        _rank_deficient(np.random.default_rng(96), 32, 96, 200, 40),
+        np.ones(32, dtype=bool)),
+    "early-saturation-64x300": lambda: (
+        _early_saturation(np.random.default_rng(64), 16, 64, 300),
+        np.ones(16, dtype=bool)),
+    "one-lane": lambda: (_code_lanes("optimalH", 1, 7),
+                         np.ones(1, dtype=bool)),
+    "129-lanes": lambda: (_code_lanes("optimalH", 129, 8), _third_off(129)),
+    "all-inactive": lambda: (_code_lanes("optimalH", 16, 9),
+                             np.zeros(16, dtype=bool)),
+    # the largest lane of three word buckets: 12 words at 1024 threads,
+    # 16 at 768 and 24 at 640 (above 48 KB of shared memory)
+    "words-12-384x1024": lambda: (
+        _bernoulli(np.random.default_rng(384), 12, 384, 1024, 0.5),
+        _third_off(12)),
+    "words-16-512x768": lambda: (
+        _bernoulli(np.random.default_rng(512), 12, 512, 768, 0.5),
+        _third_off(12)),
+    "words-24-768x640": lambda: (
+        _rank_deficient(np.random.default_rng(768), 12, 768, 640, 600),
+        _third_off(12)),
+}
+_CPU_CASES = ("ragged-37x70", "ragged-63x283", "tall-70x37",
+              "rank-deficient-96x200", "early-saturation-64x300")
+
+
+@pytest.mark.parametrize("case", _CPU_CASES)
+def test_elimination_twin_matches_jax_on_shapes(case):
+    """The twin (what the kernel is held to on the card) against JAX's
+    ``gf2_eliminate_ordered`` on the card cases' shapes, eight lanes each."""
+    h_perm, active = (a[:8] for a in _CASES[case]())
+    got = gf2_eliminate(torch.from_numpy(h_perm), torch.from_numpy(active))
+    want = np.asarray(jgauss.gf2_eliminate_ordered(jnp.asarray(h_perm)))
+    np.testing.assert_array_equal(got.numpy()[active], want[active])
+    np.testing.assert_array_equal(got.numpy()[~active], h_perm[~active])
+    if case.startswith("rank-deficient"):
+        assert (want.any(axis=2).sum(axis=1) < h_perm.shape[1]).all()
+
+
+@pytest.mark.parametrize("m, n, threads, words", [
+    (160, 280, 288, 5), (520, 640, 640, 20), (1, 1, 32, 1),
+    (256, 32, 32, 8), (257, 33, 64, 12), (37, 70, 96, 2), (63, 283, 288, 2),
+    (70, 37, 64, 3), (384, 1024, 1024, 12), (512, 768, 768, 16),
+    (513, 640, 640, 20), (768, 600, 608, 24)])
+def test_gauss_plan_layout(m, n, threads, words):
+    """One block per lane of one thread per column (n rounded up to a
+    warp, within 1024 threads, 768 at 16 words, 640 above), ceil(m / 32)
+    words of row bits (a multiple of 4 above 8), and in shared memory 4
+    words of counters, P, a pivot row per column, an output row per row and
+    an elim per row (words padded to a multiple of 4)."""
+    plan = gauss_plan(m, n)
+    assert set(plan) == {"threads_per_lane", "words", "smem_bytes"}
+    assert plan["threads_per_lane"] == threads
+    assert plan["words"] == words
+    limit = 1024 if words <= 12 else 768 if words <= 16 else 640
+    assert threads <= limit
+    padded = -(-words // 4) * 4
+    assert plan["smem_bytes"] == (4 + padded + threads + -(-m // 4) * 4
+                                  + m * padded) * 4
+
+
+@pytest.mark.parametrize("name, words", [("optimalH", 5), ("H02", 20)])
+def test_gauss_plan_takes_the_codes(name, words):
+    m, n = _h(name).shape
+    plan = gauss_plan(m, n)
+    assert plan["threads_per_lane"] == -(-n // 32) * 32
+    assert plan["words"] == words and 32 * words >= m
+
+
+@pytest.mark.parametrize("m, n", [(0, 10), (10, 0), (769, 10), (10, 1025),
+                                  (385, 1000), (513, 641), (2000, 4000)])
+def test_gauss_plan_refuses_beyond_its_limits(m, n):
+    with pytest.raises(ValueError, match="gauss_plan"):
+        gauss_plan(m, n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -137,22 +265,35 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["optimalH", "H02"])
-def test_kernel_matches_twin_on_card(cuda_device, name):
-    """128 lanes, a third inactive: active lanes bit-identical to the twin,
-    inactive lanes passed through."""
-    h = _h(name)
-    rng = np.random.default_rng(6)
-    u = torch.from_numpy(_u(rng, 128, h.shape[1])).to(cuda_device)
-    ht = torch.from_numpy(h).to(cuda_device)
-    p = fractional_column_order(u)
-    idx = p[:, None, :].expand(128, *h.shape)
-    h_perm = ht.expand(128, *h.shape).gather(2, idx).contiguous()
-    active = torch.arange(128, device=cuda_device) % 3 != 0
+@pytest.mark.parametrize("case", list(_CASES))
+def test_kernel_matches_twin_on_card(cuda_device, case):
+    """Active lanes bit-identical to ``gf2_eliminate_ordered``, inactive
+    lanes passed through, one launch per call, and a second call
+    bit-identical to the first."""
+    h_np, act_np = _CASES[case]()
+    h_perm = torch.from_numpy(h_np).to(cuda_device)
+    active = torch.from_numpy(act_np).to(cuda_device)
     before = gauss_kernel.LAUNCHES
     got = gf2_eliminate(h_perm, active)
-    want = gf2_eliminate_ordered(h_perm)
     torch.cuda.synchronize()
     assert gauss_kernel.LAUNCHES == before + 1
+    want = gf2_eliminate_ordered(h_perm)
     assert torch.equal(got[active], want[active])
     assert torch.equal(got[~active], h_perm[~active])
+    again = gf2_eliminate(h_perm, active)
+    torch.cuda.synchronize()
+    assert gauss_kernel.LAUNCHES == before + 2
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n", [(769, 8), (8, 1025)])
+def test_kernel_refuses_shapes_beyond_its_plan_on_card(cuda_device, m, n):
+    """A shape no plan takes raises on the card; it does not go to the
+    twin."""
+    h_perm = torch.zeros((2, m, n), dtype=torch.uint8, device=cuda_device)
+    active = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    before = gauss_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="gauss_plan"):
+        gf2_eliminate(h_perm, active)
+    assert gauss_kernel.LAUNCHES == before
