@@ -76,12 +76,19 @@ printing one line before the next starts:
    matrix the same way beside ``baddbmm`` on the float32 slice;
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
-   capacity 1408, the IPM), CSVs under ``build/``, with the five kernels'
-   launch counts reset before and read after, and the matvecs' and the
-   normal matrix's launches per row tier. Gates: FER within |z| < 3.5
-   of the reference's 0.8704, no cut dropped, every kernel launched. Then
-   the same 128 lanes decoded with the kernel backends and with the plain
-   ones (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
+   capacity 1408, the IPM), which streams (``streaming="auto"``: finished
+   lanes refilled after each cut round), CSVs under ``build/``, with the
+   five kernels' launch counts reset before and read after, and the
+   matvecs' and the normal matrix's launches per row tier. Gates: FER
+   within |z| < 3.5 of the reference's 0.8704, no cut dropped, every kernel
+   launched. Printed beside it: the first 256 of those trials on the
+   batched runner (``streaming=False``), each run's FER, rounds, cut counts
+   (``cum_h``/``cum_g``), cw/s and host syncs per 128 trials (torch's sync
+   debug mode), then each runner's launches per 128 trials (non-view ATen
+   operations plus the hand-written kernels, counted in separate runs
+   under a dispatch mode). Then the same 128 lanes decoded with the kernel
+   backends and with the plain ones
+   (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
    ``"xla"``): success agrees on >= 95 % of lanes (the IPM's stop tests
    read float32 errors summed in another order);
 9. ALP on H02 (520 x 640, capacity 2176): ``run_sweep`` with decoders
@@ -89,8 +96,35 @@ printing one line before the next starts:
    counts reset before and read after and printed per row tier. H02 has
    no golden FER, so this is no parity check: it must run to its end with
    no cut dropped and launch the kernel at T >= 640 (clusters of 4 blocks
-   per lane).
+   per lane);
+10. QP-ADMM path: ``run_sweep`` with decoders ``qp-admm``, -3 dB, 2,048
+    trials in batches of 1024 (alpha 1.2, mu 0.55, ``max_iter`` 10,000),
+    which streams; FER within |z| < 3.5 of 0.2751, mean iterations, cw/s
+    and host syncs per 1024 trials. The same trials on the batched runner,
+    then batched and streamed again (the order alternated, for the cw/s of
+    each runner): all eight counters of every run equal (no quantity of
+    QP-ADMM couples lanes). 64 of the lanes decoded on the card and on the
+    CPU at ``max_iter`` 2,000: bits and success equal.
+    A 64-iteration chunk at 1024 lanes: ms per iteration and dispatches per
+    iteration.
+    H02 at the defaults (e_min 2: 2 * 0.55 <= 1.2), 64 lanes: FER 1.0 and
+    no lane successful;
+11. Full LP: ``run_sweep`` with decoders ``full-lp``, -3 dB, 512 trials in
+    batches of 256, 2,000 PDHG steps (no golden FER: the reference leaves
+    this decoder out, ``main.cpp:36``); 32 lanes on the card and on the
+    CPU: x within 1e-4, bits and success equal on the lanes whose every
+    coordinate lies 1e-3 from 0.5 and from ``int_tol``; with TF32 allowed
+    the decode refuses;
+12. the fused multi-SNR runner: BP-100 over -4, -3 and -2 dB as one run of
+    3 x 8,192 lanes, against three single-SNR runs of the same trials:
+    all counters equal; each point's z against the golden curve printed;
+13. the apps: ``qpadmm_grid`` over 3 x 3 cells around (1.2, 0.55) at 256
+    trials, each cell's FER equal to a ``QPADMMDecoder`` run at that cell
+    on the same LLRs; ``validate`` for QP-ADMM at -3 dB with
+    ``max_trials`` 2,048: verdict PASS.
 
+Phases 10-13 reset every kernel's launch count before their path and print
+the counts after it (only phase 12 runs a hand-written kernel, BP's).
 Each phase prints its seconds. Then the script prints the kernels' JSON
 line, the card's ``name, power.limit`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -155,6 +189,21 @@ CHOL_TOL = 1e-4
 GAUSS_RAGGED = (63, 283)
 FIRST_GAUSS_MS = 0.226
 AGC_AGREE_MIN = 0.95
+AGC_BATCHED = 256
+# phases 10-13: QP-ADMM (DEFAULT_BATCH["qp-admm"] = 1024, so 2048 trials
+# stream), Full LP, the fused multi-SNR BP run and the apps
+ADMM_SNR = -3.0
+ADMM_TRIALS = 2048
+ADMM_CPU_LANES = 64
+ADMM_CPU_ITERS = 2000   # the card-vs-CPU decode's max_iter, as the gpu test's
+ADMM_H02_LANES = 64
+ADMM_CHUNK = 64
+LP_TRIALS = 512
+LP_CPU_LANES = 32
+LP_X_TOL = 1e-4     # |x card - x CPU| after 2000 steps (GEMM sum order)
+LP_MARGIN = 1e-3    # lanes this far from 0.5 and int_tol decide alike
+MULTI_SNRS = (-4.0, -3.0, -2.0)
+GRID_TRIALS = 256
 
 
 def _time_ms(fn, repeats: int = REPEATS) -> float:
@@ -683,11 +732,17 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
                 "chol_diag_inv": ("chol_kernel", "LAUNCHES")}
 
 
-def _agc_counts(reset: bool = False) -> dict:
-    """Each AGC-ALP kernel's launch count; with ``reset``, set them to 0."""
+# every kernel of the port
+ALL_COUNTERS = {"bp_decode": ("bp_kernel", "LAUNCHES"),
+                "pdhg_chunk": ("pdhg_kernel", "LAUNCHES"), **AGC_COUNTERS}
+
+
+def _agc_counts(reset: bool = False, counters=AGC_COUNTERS) -> dict:
+    """Each kernel's launch count (the AGC-ALP kernels unless ``counters``
+    says otherwise); with ``reset``, set them to 0."""
     import importlib
     out = {}
-    for name, (module, counter) in AGC_COUNTERS.items():
+    for name, (module, counter) in counters.items():
         mod = importlib.import_module(f"ldpc_tpu_torch.ops.{module}")
         if reset:
             setattr(mod, counter, 0)
@@ -1179,17 +1234,128 @@ def phase_agc_kernels_vs_ref():
     return rows
 
 
+class _HostReads:
+    """Counts the host's waits on the card (reads back to the host and the
+    runners' synchronisations) as the warnings of torch's sync debug
+    mode."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        self.n = 0
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self.n = sum("synchroniz" in str(w.message) for w in self._seen)
+        self._catch.__exit__(*exc)
+
+
+def _launches(fn):
+    """Runs ``fn`` and counts what it sends to the card: ATen operations
+    that are not views (each launches about one kernel; this counts
+    dispatches, not kernels) plus the hand-written kernels' launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    before = sum(_agc_counts(counters=ALL_COUNTERS).values())
+    with Ops() as ops:
+        fn()
+    return ops.n + sum(_agc_counts(counters=ALL_COUNTERS).values()) - before
+
+
+class _CutTally:
+    """Sums AGC-ALP's ``cum_h`` and ``cum_g`` over the trials a run
+    finishes, on the device, around the decoder's own methods: in a
+    streamed run each lane in the ``stream_chunk`` that finishes it, in a
+    batched run every lane of each ``_run_loop``. The first ``skip`` chunks
+    are left out (the streamed runner's warm-up is one chunk)."""
+
+    def __init__(self, skip: int = 0):
+        self.skip = skip
+
+    def __enter__(self):
+        import torch
+        from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder as cls
+        chunk, loop = cls.stream_chunk, cls._run_loop
+        self.cls, self.sums, self.chunks = cls, None, 0
+        tally = self
+
+        def add(st, lanes):
+            got = [(st[k] * lanes).sum() for k in ("cum_h", "cum_g")]
+            got.append(lanes.sum())
+            tally.sums = got if tally.sums is None else [
+                a + b for a, b in zip(tally.sums, got)]
+
+        def stream_chunk(dec, st):
+            before = st["done"].clone()
+            st = chunk(dec, st)
+            tally.chunks += 1
+            if tally.chunks > tally.skip:
+                add(st, st["done"] & ~before)
+            return st
+
+        def run_loop(dec, llrs):
+            st = loop(dec, llrs)
+            add(st, torch.ones_like(st["done"]))
+            return st
+
+        cls.stream_chunk, cls._run_loop = stream_chunk, run_loop
+        return self
+
+    def __exit__(self, *exc):
+        del self.cls.stream_chunk, self.cls._run_loop
+
+    def per_trial(self, trials):
+        """Mean ``cum_h`` and ``cum_g`` per trial; the tally must have seen
+        each of the run's ``trials`` finish once."""
+        cum_h, cum_g, lanes = (int(x) for x in self.sums)
+        if lanes != trials:
+            raise AssertionError(f"the cut tally saw {lanes} lanes finish, "
+                                 f"the run {trials}")
+        return cum_h / trials, cum_g / trials
+
+
+def _agc_line(label, res, fer_ref, cuts, reads, secs):
+    from ldpc_tpu_torch.harness.reference_data import z_score
+    z = z_score(res.fer, res.total, fer_ref)
+    cum_h, cum_g = cuts.per_trial(res.total)
+    per = AGC_LANES / res.total
+    print(f"[8 agc path] {label}: {res.total} trials, FER {res.fer:.4f} (z = "
+          f"{z:+.2f} against {fer_ref}), mean rounds "
+          f"{res.sum_iterations / res.total:.3f}, mean cum_h {cum_h:.3f} / "
+          f"cum_g {cum_g:.3f}, dropped {res.sum_dropped}, "
+          f"{res.throughput:.2f} cw/s, host syncs {reads.n} "
+          f"({reads.n * per:.1f} per {AGC_LANES} trials), {secs:.2f} s",
+          flush=True)
+    return z
+
+
 def phase_agc_path():
     import torch
     from ldpc_tpu_torch import bench
     from ldpc_tpu_torch.apps.benchmark import run_sweep
+    from ldpc_tpu_torch.channel.awgn import gen_random_codewords
     from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
     from ldpc_tpu_torch.codes.io import read_pcm
     from ldpc_tpu_torch.config import SweepConfig
     from ldpc_tpu_torch.decoders import default_batch
     from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
+    from ldpc_tpu_torch.harness.experiment import run_experiment
     from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
-                                                       Z_BOUND, z_score)
+                                                       Z_BOUND)
     from ldpc_tpu_torch.ops import gemv_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1202,23 +1368,21 @@ def phase_agc_path():
     os.makedirs("build", exist_ok=True)
     _agc_counts(reset=True)
     gemv_kernel.reset_tier_counts()
-    t0 = time.perf_counter()
-    rows = run_sweep(cfg, device=dev)
-    secs = time.perf_counter() - t0
+    with _CutTally(skip=1) as cuts, _HostReads() as reads:
+        t0 = time.perf_counter()
+        rows = run_sweep(cfg, device=dev)
+        secs = time.perf_counter() - t0
     launches = _agc_counts()
     tiers = {"gemv_fwd": dict(sorted(gemv_kernel.GEMV_TIER_LAUNCHES.items())),
              "gemv_tr": dict(sorted(gemv_kernel.GEMV_T_TIER_LAUNCHES.items())),
              "normal_build": dict(sorted(
                  gemv_kernel.NORMAL_TIER_LAUNCHES.items()))}
     res = rows[0][2]
-    z = z_score(res.fer, res.total, fer_ref)
-    print(f"[8 agc path] run_sweep agc-alp {AGC_SNR} dB, {res.total} trials "
-          f"in batches of {default_batch('agc-alp')}: {res.throughput:.2f} "
-          f"cw/s, FER {res.fer:.4f} (z = {z:+.2f} against {fer_ref}), "
-          f"average rounds {res.sum_iterations / res.total:.3f}, dropped "
-          f"{res.sum_dropped}, launches {launches}, {secs:.2f} s with "
-          f"warm-up", flush=True)
-    print(f"[8 agc path] launches per row tier T: {tiers}", flush=True)
+    z = _agc_line(f"run_sweep agc-alp {AGC_SNR} dB, batches of "
+                  f"{default_batch('agc-alp')}, streamed (the default)", res,
+                  fer_ref, cuts, reads, secs)
+    print(f"[8 agc path] streamed run's launches {launches}; per row tier "
+          f"T: {tiers}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the AGC-ALP path did not launch every kernel: "
                              f"{launches}")
@@ -1230,8 +1394,34 @@ def phase_agc_path():
     if not 0.0 < res.throughput < float("inf"):
         raise AssertionError(f"bad throughput {res.throughput}")
 
+    # the first AGC_BATCHED of those trials on the batched runner, then the
+    # launches per AGC_LANES trials of each runner, counted apart
     h = read_pcm(str(bench.MATRIX))
     g, _ = gf2_nullspace(h)
+    cw = gen_random_codewords(g, AGC_TRIALS,
+                              torch.Generator().manual_seed(cfg.seed), dev)
+    dec = AGCALPDecoder(h, device=dev)
+
+    def run(trials, streaming):
+        return run_experiment(dec, h, cw[:trials], AGC_SNR, cfg.seed + 1,
+                              AGC_LANES, device=dev, warmup=False,
+                              streaming=streaming)
+
+    with _CutTally() as bcuts, _HostReads() as breads:
+        t0 = time.perf_counter()
+        bres = run(AGC_BATCHED, False)
+        bsecs = time.perf_counter() - t0
+    _agc_line(f"run_experiment(streaming=False), the first {AGC_BATCHED} "
+              f"trials, batched", bres, fer_ref, bcuts, breads, bsecs)
+    per_stream = _launches(lambda: run(2 * AGC_LANES, True)) / 2
+    per_batch = _launches(lambda: run(AGC_LANES, False))
+    print(f"[8 agc path] launches per {AGC_LANES} trials (non-view ATen "
+          f"operations plus the hand-written kernels, counted on "
+          f"{2 * AGC_LANES} trials streamed and {AGC_LANES} batched): "
+          f"streamed {per_stream:.1f}, batched {per_batch:.1f}", flush=True)
+    if bres.sum_dropped != 0:
+        raise AssertionError(f"batched AGC-ALP dropped {bres.sum_dropped}")
+
     llr = _alp_llrs(g, AGC_LANES, 43)
     out = {}
     for backend in ("kernel", "plain"):
@@ -1315,6 +1505,326 @@ def phase_h02_alp():
     return launches, tiers
 
 
+def _path_counts(phase, counts, need=()):
+    """Prints each kernel's launches on a phase's path (counted from 0
+    just before it); the kernels in ``need`` must have launched."""
+    print(f"[{phase}] kernel launches on this path: {counts}", flush=True)
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the path did not launch {missing}")
+
+
+def _same_counters(a, b) -> bool:
+    from ldpc_tpu_torch.harness.experiment import COUNTERS
+    return all(getattr(a, k) == getattr(b, k) for k in COUNTERS)
+
+
+def phase_qpadmm_path():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps.benchmark import run_sweep
+    from ldpc_tpu_torch.channel.awgn import gen_random_codewords, noise_scales
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.config import SweepConfig
+    from ldpc_tpu_torch.decoders import default_batch
+    from ldpc_tpu_torch.decoders.admm import QPADMMDecoder
+    from ldpc_tpu_torch.harness.experiment import channel_step, run_experiment
+    from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
+                                                       Z_BOUND, z_score)
+
+    dev = torch.device("cuda")
+    fer_ref = REF_FER_OPT["QP-ADMM"][SNR_GRID.index(ADMM_SNR)]
+    bsz = default_batch("qp-admm")
+    cfg = SweepConfig(matrix=str(bench.MATRIX), decoders=("qp-admm",),
+                      snrs=(ADMM_SNR,), trials=ADMM_TRIALS,
+                      report="build/chip_smoke_admm.csv",
+                      extended_report="build/chip_smoke_admm_extended.csv")
+    os.makedirs("build", exist_ok=True)
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    with _HostReads() as reads:
+        t0 = time.perf_counter()
+        rows = run_sweep(cfg, device=dev)
+        secs = time.perf_counter() - t0
+    _path_counts("10 qp-admm path", _agc_counts(counters=ALL_COUNTERS))
+    res = rows[0][2]
+    z = z_score(res.fer, res.total, fer_ref)
+    print(f"[10 qp-admm path] run_sweep qp-admm {ADMM_SNR} dB, {res.total} "
+          f"trials in batches of {bsz}, streamed (the default): "
+          f"{res.throughput:.1f} cw/s, FER {res.fer:.4f} (z = {z:+.2f} "
+          f"against {fer_ref}), mean iterations "
+          f"{res.sum_iterations / res.total:.1f}, host syncs {reads.n} "
+          f"({reads.n * bsz / res.total:.1f} per {bsz} trials), {secs:.2f} s "
+          f"with warm-up", flush=True)
+    if not abs(z) < Z_BOUND or res.total != ADMM_TRIALS:
+        raise AssertionError(f"QP-ADMM FER {res.fer} is {z:+.2f} sigma from "
+                             f"the reference")
+
+    h = read_pcm(str(bench.MATRIX))
+    g, _ = gf2_nullspace(h)
+    cw = gen_random_codewords(g, ADMM_TRIALS,
+                              torch.Generator().manual_seed(cfg.seed), dev)
+    dec = QPADMMDecoder(h, device=dev)
+
+    def run(streaming):
+        return run_experiment(dec, h, cw, ADMM_SNR, cfg.seed + 1, bsz,
+                              device=dev, warmup=False, streaming=streaming)
+
+    with _HostReads() as breads:
+        bres = run(False)
+    same = _same_counters(res, bres)
+    print(f"[10 qp-admm path] the same trials batched: {bres.throughput:.1f} "
+          f"cw/s, FER {bres.fer:.4f}, mean iterations "
+          f"{bres.sum_iterations / bres.total:.1f}, host syncs {breads.n} "
+          f"({breads.n * bsz / bres.total:.1f} per {bsz} trials); all eight "
+          f"counters equal to the streamed run's: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"streamed {res} and batched {bres} differ")
+    again = [run(False), run(True)]
+    order = [("streamed", res), ("batched", bres), ("batched", again[0]),
+             ("streamed", again[1])]
+    print(f"[10 qp-admm path] cw/s in run order (streamed, batched, batched, "
+          f"streamed): " + ", ".join(f"{k} {r.throughput:.1f}"
+                                     for k, r in order), flush=True)
+    if not all(_same_counters(res, r) for r in again):
+        raise AssertionError(f"the repeated runs differ: {again}")
+
+    # one iteration at the batch's width: device time per iteration and
+    # what it dispatches (a chunk of ADMM_CHUNK iterations from fresh lanes,
+    # none of which finishes that early at -3 dB)
+    y = channel_step(cw[:bsz], torch.arange(bsz, device=dev), ADMM_SNR,
+                     cfg.seed + 1)
+    llr = noise_scales(ADMM_SNR)[1] * y
+    dec.stream_chunk_iters = ADMM_CHUNK
+    st = dec.stream_chunk(dec.stream_init(llr))              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = dec.stream_chunk(st)
+    torch.cuda.synchronize()
+    ms_it = (time.perf_counter() - t0) * 1e3 / ADMM_CHUNK
+    fresh = dec.stream_init(llr)
+    ops = _launches(lambda: fresh.update(dec.stream_chunk(fresh)))
+    per_it = ops / int(fresh["it"].max())
+    print(f"[10 qp-admm path] {bsz} lanes, {ADMM_CHUNK}-iteration chunks: "
+          f"{ms_it:.4f} ms per iteration by the host clock, {per_it:.1f} "
+          f"dispatches per iteration (non-view ATen operations)", flush=True)
+    del dec.stream_chunk_iters
+
+    llr = llr[:ADMM_CPU_LANES]
+    card = QPADMMDecoder(h, max_iter=ADMM_CPU_ITERS,
+                         device=dev).decode_batch(llr)
+    t0 = time.perf_counter()
+    cpu = QPADMMDecoder(h, max_iter=ADMM_CPU_ITERS,
+                        device="cpu").decode_batch(llr.cpu())
+    cpu_s = time.perf_counter() - t0
+    bits_ok = torch.equal(card.bits.cpu(), cpu.bits)
+    succ_ok = torch.equal(card.success.cpu(), cpu.success)
+    it_same = int((card.iterations.cpu() == cpu.iterations).sum())
+    print(f"[10 qp-admm path] {ADMM_CPU_LANES} lanes on the card and on the "
+          f"CPU at max_iter {ADMM_CPU_ITERS}: bits equal {bits_ok}, success equal {succ_ok}, iterations "
+          f"equal on {it_same} lanes (sum2 is summed in another order); "
+          f"CPU {cpu_s:.2f} s", flush=True)
+    if not (bits_ok and succ_ok):
+        raise AssertionError("QP-ADMM on the card differs from the CPU")
+
+    h02 = read_pcm(str(bench.MATRIX.parent / "H02.txt"))
+    g02, _ = gf2_nullspace(h02)
+    dec02 = QPADMMDecoder(h02, device=dev)
+    cw02 = gen_random_codewords(g02, ADMM_H02_LANES,
+                                torch.Generator().manual_seed(cfg.seed), dev)
+    y02 = channel_step(cw02, torch.arange(ADMM_H02_LANES, device=dev),
+                       ADMM_SNR, cfg.seed + 1)
+    t0 = time.perf_counter()
+    r02 = dec02.decode_batch(noise_scales(ADMM_SNR)[1] * y02)
+    correct = r02.success & (r02.bits == cw02).all(-1)
+    fer02 = 1.0 - correct.float().mean().item()
+    e_min = dec02.structure.e_min
+    print(f"[10 qp-admm path] H02 (520x640) at alpha 1.2, mu 0.55 "
+          f"(e_min {e_min}: e_min * mu > alpha is {e_min * 0.55 > 1.2}), "
+          f"{ADMM_H02_LANES} lanes: FER {fer02:.4f}, successes "
+          f"{int(r02.success.sum())}, nonzero bits "
+          f"{int(r02.bits.sum())}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if fer02 != 1.0 or bool(r02.success.any()) or bool(r02.bits.any()):
+        raise AssertionError("QP-ADMM on H02 at the defaults must fail")
+
+
+def phase_full_lp():
+    import numpy as np
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps.benchmark import run_sweep
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.config import SweepConfig
+    from ldpc_tpu_torch.decoders import default_batch
+    from ldpc_tpu_torch.decoders.lp import FullLPDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = SweepConfig(matrix=str(bench.MATRIX), decoders=("full-lp",),
+                      snrs=(ADMM_SNR,), trials=LP_TRIALS,
+                      report="build/chip_smoke_lp.csv",
+                      extended_report="build/chip_smoke_lp_extended.csv")
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    t0 = time.perf_counter()
+    rows = run_sweep(cfg, device=dev)
+    secs = time.perf_counter() - t0
+    _path_counts("11 full lp", _agc_counts(counters=ALL_COUNTERS))
+    res = rows[0][2]
+    print(f"[11 full lp] run_sweep full-lp {ADMM_SNR} dB, {res.total} trials "
+          f"in batches of {default_batch('full-lp')}, 2000 iterations: "
+          f"{res.throughput:.1f} cw/s, "
+          f"FER {res.fer:.4f} (no golden: the reference comments this "
+          f"decoder out, main.cpp:36), {secs:.2f} s with warm-up",
+          flush=True)
+    if res.total != LP_TRIALS or not 0.0 < res.throughput < float("inf"):
+        raise AssertionError(f"Full LP: {res.total} trials, "
+                             f"{res.throughput} cw/s")
+
+    h = read_pcm(str(bench.MATRIX))
+    g, _ = gf2_nullspace(h)
+    llr = _alp_llrs(g, LP_CPU_LANES, 53)
+    card, cpu = FullLPDecoder(h, device=dev), FullLPDecoder(h, device="cpu")
+    x = card.solve(llr).cpu()
+    xc = cpu.solve(llr.cpu())
+    dx = float((x - xc).abs().max())
+    xv, xcv = x[:, :card.n].numpy(), xc[:, :card.n].numpy()
+
+    def clear(v):       # every coordinate LP_MARGIN from each threshold
+        t = card.int_tol
+        dist = np.min(np.stack([abs(v - 0.5), abs(v - t), abs(v - 1 + t)]),
+                      axis=0)
+        return (dist >= LP_MARGIN).all(axis=1)
+
+    sure = torch.from_numpy(clear(xv) & clear(xcv))
+    a, b = card.decode_batch(llr), cpu.decode_batch(llr.cpu())
+    same = (torch.equal(a.bits.cpu()[sure], b.bits[sure])
+            and torch.equal(a.success.cpu()[sure], b.success[sure]))
+    print(f"[11 full lp] {LP_CPU_LANES} lanes on the card and on the CPU: "
+          f"max |dx| {dx:.3e} (bound {LP_X_TOL}), bits and success equal on "
+          f"the {int(sure.sum())} lanes clear of 0.5 and int_tol by "
+          f"{LP_MARGIN}: {same}", flush=True)
+    if not (dx <= LP_X_TOL and same):
+        raise AssertionError("Full LP on the card differs from the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card.decode_batch(llr[:2])
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[11 full lp] with TF32 allowed the decode refuses: {refused}",
+          flush=True)
+    if not refused:
+        raise AssertionError("Full LP ran with TF32 allowed")
+
+
+def phase_multi_snr():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.channel.awgn import gen_random_codewords
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.decoders.bp import BPDecoder
+    from ldpc_tpu_torch.harness.experiment import (run_experiment,
+                                                   run_multi_snr_experiment)
+    from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
+                                                       z_score)
+
+    dev = torch.device("cuda")
+    h = read_pcm(str(bench.MATRIX))
+    g, _ = gf2_nullspace(h)
+    cw = gen_random_codewords(g, LANES, torch.Generator().manual_seed(
+        bench.SEED), dev)
+    dec = BPDecoder(h, max_iter=MAX_ITER, device=dev)
+    run_multi_snr_experiment(dec, h, cw[:LANES // 8], MULTI_SNRS,
+                             bench.SEED + 1, LANES, device=dev)   # warm-up
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    fused = run_multi_snr_experiment(dec, h, cw, MULTI_SNRS, bench.SEED + 1,
+                                     LANES, device=dev, warmup=False)
+    counts = _agc_counts(counters=ALL_COUNTERS)
+    _path_counts("12 multi-snr", counts, need=("bp_decode",))
+    elapsed = sum(r.time_sec for r in fused)
+    print(f"[12 multi-snr] BP-{MAX_ITER} over {MULTI_SNRS} dB as one run of "
+          f"{len(MULTI_SNRS)} x {LANES} lanes in batches of {LANES}: "
+          f"{len(MULTI_SNRS) * LANES / elapsed:.0f} cw/s", flush=True)
+    ok, single_s = True, 0.0
+    for snr, fres in zip(MULTI_SNRS, fused):
+        single = run_experiment(dec, h, cw, snr, bench.SEED + 1, LANES,
+                                device=dev, warmup=False)
+        single_s += single.time_sec
+        same = _same_counters(fres, single)
+        ok &= same
+        ref = REF_FER_OPT["BP"][SNR_GRID.index(snr)]
+        print(f"[12 multi-snr] {snr} dB: FER {fres.fer:.4f} (z = "
+              f"{z_score(fres.fer, fres.total, ref):+.2f} against {ref}), "
+              f"mean iterations {fres.sum_iterations / fres.total:.2f}; "
+              f"counters equal to a single-SNR run: {same}", flush=True)
+    print(f"[12 multi-snr] fused {elapsed * 1e3:.3f} ms against the "
+          f"single-SNR runs' {single_s * 1e3:.3f} ms", flush=True)
+    if not ok:
+        raise AssertionError("the fused multi-SNR run differs from the "
+                             "single-SNR runs")
+
+
+def phase_apps():
+    import numpy as np
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps import qpadmm_grid, validate
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.config import GridSearchConfig
+    from ldpc_tpu_torch.decoders.admm import QPADMMDecoder
+
+    dev = torch.device("cuda")
+    cfg = GridSearchConfig(matrix=str(bench.MATRIX), trials=GRID_TRIALS,
+                           alpha_min=1.1, alpha_max=1.3, alpha_count=3,
+                           mu_min=0.5, mu_max=0.6, mu_count=3,
+                           grid_out="build/chip_smoke_grid.csv")
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    t0 = time.perf_counter()
+    fers, best = qpadmm_grid.run_grid(cfg, device=dev,
+                                      log=lambda *a, **k: None)
+    secs = time.perf_counter() - t0
+    _path_counts("13 apps", _agc_counts(counters=ALL_COUNTERS))
+    h = read_pcm(cfg.matrix)
+    cw, llr = qpadmm_grid.grid_channel(cfg, h, dev)
+    diff = []
+    for (a, m), fer in fers.items():
+        res = QPADMMDecoder(h, alpha=a, mu=m, max_iter=cfg.admm_max_iter,
+                            eps_stop=cfg.admm_eps_stop,
+                            device=dev).decode_batch(llr)
+        correct = res.success & (res.bits == cw).all(-1)
+        want = (1.0 - correct.to(torch.float32).mean()).item()
+        if fer != want:
+            diff.append(((a, m), fer, want))
+    by_cell = {(round(float(a), 3), round(float(m), 3)): round(f, 4)
+               for (a, m), f in fers.items()}
+    print(f"[13 apps] qpadmm_grid, 3 x 3 cells around (1.2, 0.55), "
+          f"{GRID_TRIALS} trials, one decode of {len(fers) * GRID_TRIALS} "
+          f"lanes: {secs:.2f} s; FER by cell {by_cell}; "
+          f"best {best[0]:.4f} at ({best[1]:.3f}, {best[2]:.3f}); cells "
+          f"differing from a QPADMMDecoder run at that cell: {diff}",
+          flush=True)
+    if diff or not np.isfinite(best[0]):
+        raise AssertionError(f"grid cells differ: {diff}")
+    t0 = time.perf_counter()
+    rows = validate.validate(decoders=("qp-admm",), snrs=(ADMM_SNR,),
+                             max_trials=ADMM_TRIALS, device=dev,
+                             report="build/chip_smoke_validate.csv",
+                             log=lambda *a, **k: None)
+    r = rows[0]
+    print(f"[13 apps] validate qp-admm {ADMM_SNR} dB, --max-trials "
+          f"{ADMM_TRIALS}: FER {r['fer']:.4f} against {r['ref']} (z = "
+          f"{r['z']:+.2f}, n = {r['n']}), {r['verdict']}, "
+          f"{r['throughput']:.1f} cw/s, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if r["verdict"] != "PASS":
+        raise AssertionError(f"validate: {r}")
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -1343,6 +1853,10 @@ def main() -> int:
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
     agc_launches, tiers = _timed("8 agc path", phase_agc_path)
     h02_launches, h02_tiers = _timed("9 h02 alp", phase_h02_alp)
+    _timed("10 qp-admm path", phase_qpadmm_path)
+    _timed("11 full lp", phase_full_lp)
+    _timed("12 multi-snr", phase_multi_snr)
+    _timed("13 apps", phase_apps)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

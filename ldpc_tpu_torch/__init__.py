@@ -10,12 +10,17 @@ Main path (``python -m ldpc_tpu_torch.bench``): ``codes.io.read_pcm`` ->
 ``harness.experiment.run_experiment`` with ``decoders.bp.BPDecoder``, which on
 a CUDA tensor runs the fused decode kernel in ``csrc/bp_decode.cu``.
 
-Sweep app (``python -m ldpc_tpu_torch.apps.benchmark --decoders bp alp``):
-the same harness per (decoder, SNR), writing the reference's ``report.csv``;
+Sweep app (``python -m ldpc_tpu_torch.apps.benchmark``, by default BP,
+QP-ADMM, ALP and AGC-ALP): the same harness per (decoder, SNR), writing the
+reference's ``report.csv``; decoders with the streaming protocol (QP-ADMM,
+AGC-ALP) run through ``harness.experiment.run_streaming_experiment``.
+``decoders.admm.QPADMMDecoder`` and ``decoders.lp.FullLPDecoder`` are plain
+torch ops (the JAX package has no Pallas kernel for either);
 ``decoders.alp.ALPDecoder`` re-solves its cut LPs with
 ``ops.lp_solver.pdhg_box_lp_fused``, whose chunks run the PDHG kernel in
 ``csrc/pdhg_chunk.cu`` on a CUDA tensor; ``decoders.agc_alp.AGCALPDecoder``
 (``--decoders agc-alp``) solves with the IPM of ``ops.ipm_solver`` (kernels
 ``csrc/gemv.cu``, ``csrc/normal_build.cu``, ``csrc/chol_diag_inv.cu``) and
-adds Gaussian-elimination cuts (``csrc/gf2_gauss.cu``).
+adds Gaussian-elimination cuts (``csrc/gf2_gauss.cu``). The (alpha, mu) grid
+search and the parity sweep are ``apps.qpadmm_grid`` and ``apps.validate``.
 """

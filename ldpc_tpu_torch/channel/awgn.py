@@ -23,8 +23,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["llr_variance", "llr", "bpsk", "awgn_noise", "transmit",
-           "channel_llr", "gen_random_codewords"]
+__all__ = ["llr_variance", "llr", "bpsk", "awgn_noise", "noise_scales",
+           "snr_table", "transmit", "transmit_lanes", "channel_llr",
+           "gen_random_codewords"]
 
 _M32 = 0xFFFFFFFF
 
@@ -83,12 +84,38 @@ def awgn_noise(seed: int, trial_idx: torch.Tensor, n: int) -> torch.Tensor:
     return z.reshape(z.shape[0], 2 * pairs)[:, :n].to(torch.float32)
 
 
+def noise_scales(snr: float) -> tuple[float, float]:
+    """(sigma, 2 / sigma^2) of one SNR as Python floats. Both round to
+    float32 where they multiply a float32 tensor, so :func:`transmit` and
+    :func:`snr_table`'s per-lane factors give the same bits."""
+    var = llr_variance(snr)
+    return math.sqrt(var), 2.0 / var
+
+
+def snr_table(snrs, device: torch.device | str):
+    """Per-SNR noise scales for lanes at different SNRs in one batch:
+    ((S,) sigma, (S,) 2 / sigma^2) float32 tensors on ``device``, built on
+    the host from :func:`noise_scales` and indexed by each lane's SNR id."""
+    scales = np.asarray([noise_scales(float(s)) for s in snrs], np.float32)
+    table = torch.from_numpy(scales.reshape(-1, 2)).to(device)
+    return table[:, 0].contiguous(), table[:, 1].contiguous()
+
+
 def transmit(bits: torch.Tensor, snr: float, seed: int,
              trial_idx: torch.Tensor) -> torch.Tensor:
     """Send codewords ``bits`` (B, n) over BPSK-AWGN; trial ``b``'s noise is
     keyed by ``(seed, trial_idx[b])``. Returns received symbols (B, n) f32."""
-    sigma = math.sqrt(llr_variance(snr))
+    sigma = noise_scales(snr)[0]
     return bpsk(bits) + sigma * awgn_noise(seed, trial_idx, bits.shape[-1])
+
+
+def transmit_lanes(bits: torch.Tensor, sigma: torch.Tensor, seed: int,
+                   trial_idx: torch.Tensor) -> torch.Tensor:
+    """:func:`transmit` with a per-lane noise scale ``sigma`` (B,) float32
+    (rows of :func:`snr_table`); a lane's symbols equal :func:`transmit`'s
+    at its SNR bit for bit."""
+    return bpsk(bits) + sigma[:, None] * awgn_noise(seed, trial_idx,
+                                                     bits.shape[-1])
 
 
 def channel_llr(bits: torch.Tensor, snr: float, seed: int,

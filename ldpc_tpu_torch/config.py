@@ -3,8 +3,8 @@
 The reference's knobs are compile-time ``#define``s and top-of-file constants
 (``main.cpp:1-2,23-40``). Here every knob is a dataclass field with a
 command-line flag; the fields and defaults are the JAX package's, so a
-command line means the same in both. ``GridSearchConfig`` and
-``OptimizeConfig`` wait for their apps (ROADMAP item 13).
+command line means the same in both. ``OptimizeConfig`` waits for its app
+(ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ import argparse
 import dataclasses
 from dataclasses import dataclass, field
 
-__all__ = ["DEFAULT_SNRS", "DecoderConfig", "SweepConfig",
-           "add_dataclass_args", "apply_args"]
+__all__ = ["DEFAULT_SNRS", "DecoderConfig", "GridSearchConfig",
+           "SweepConfig", "add_dataclass_args", "apply_args"]
 
 DEFAULT_SNRS = (-5.0, -4.5, -4.0, -3.5, -3.0, -2.5, -2.0, -1.5, -1.0, -0.5, 0.0)
 
@@ -59,6 +59,26 @@ class SweepConfig:
     # the report and append the rest (crash recovery at row granularity)
     shard: bool = True                   # shard trials over the devices
     decoder_cfg: DecoderConfig = field(default_factory=DecoderConfig)
+
+
+@dataclass
+class GridSearchConfig:
+    """The (alpha, mu) grid search (``qpadmm_params.cpp:12-14,51-58``)."""
+
+    matrix: str = "data/optimalH.txt"
+    trials: int = 1000
+    snr: float = -3.0
+    alpha_min: float = 0.0
+    alpha_max: float = 3.0
+    alpha_count: int = 61
+    mu_min: float = 0.0
+    mu_max: float = 3.0
+    mu_count: int = 61
+    admm_max_iter: int = 1000
+    admm_eps_stop: float = 1e-5
+    seed: int = 239
+    batch_cells: int = 16               # (alpha, mu) cells per decode call
+    grid_out: str = ""                  # optional CSV: one FER row per cell
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cfg) -> None:

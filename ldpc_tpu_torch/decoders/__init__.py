@@ -1,11 +1,10 @@
 """Decoder registry and factory (counterpart of
 ``ldpc_tpu/decoders/__init__.py``).
 
-Ported so far: ``bp``, ``alp`` and ``agc-alp``. The other names of the JAX
-registry raise ``NotImplementedError`` naming the ROADMAP item that ports
-them. The decoder modules are imported when a decoder is made:
-``ops.bp_ref`` imports ``decoders.base``, so importing ``decoders.bp`` here
-would be circular.
+Every name of the JAX registry builds its decoder, with the same aliases
+and the same :class:`..config.DecoderConfig` fields. The decoder modules are
+imported when a decoder is made: ``ops.bp_ref`` imports ``decoders.base``,
+so importing ``decoders.bp`` here would be circular.
 """
 from __future__ import annotations
 
@@ -20,12 +19,6 @@ DECODER_NAMES = ("bp", "qp-admm", "full-lp", "alp", "agc-alp")
 # across; not re-measured on the H100
 DEFAULT_BATCH = {"bp": 8192, "qp-admm": 1024, "full-lp": 256,
                  "alp": 256, "agc-alp": 128}
-
-_NOT_PORTED = {
-    ("qp-admm", "qpadmm", "admm"): "QP-ADMM: ROADMAP item 8",
-    ("full-lp", "fulllp"): "Full LP: ROADMAP item 10",
-}
-
 
 def default_batch(kind: str) -> int:
     """Per-decoder batch size (256 for names it does not know)."""
@@ -44,6 +37,15 @@ def make_decoder(kind: str, h, cfg=None,
         from .bp import BPDecoder
         return BPDecoder(h, max_iter=cfg.bp_max_iter, variant=cfg.bp_variant,
                          device=device)
+    if kind in ("qp-admm", "qpadmm", "admm"):
+        from .admm import QPADMMDecoder
+        return QPADMMDecoder(h, alpha=cfg.admm_alpha, mu=cfg.admm_mu,
+                             max_iter=cfg.admm_max_iter,
+                             eps_stop=cfg.admm_eps_stop, device=device)
+    if kind in ("full-lp", "fulllp"):
+        from .lp import FullLPDecoder
+        return FullLPDecoder(h, iters=cfg.full_lp_iters,
+                             int_tol=cfg.lp_int_tol, device=device)
     if kind == "alp":
         from .alp import ALPDecoder
         return ALPDecoder(h, max_rounds=cfg.lp_max_rounds,
@@ -55,8 +57,4 @@ def make_decoder(kind: str, h, cfg=None,
                              max_rounds=cfg.lp_max_rounds,
                              lp_iters=cfg.lp_iters, int_tol=cfg.lp_int_tol,
                              device=device)
-    for names, what in _NOT_PORTED.items():
-        if kind in names:
-            raise NotImplementedError(f"decoder {kind!r} is not ported to "
-                                      f"ldpc_tpu_torch yet ({what})")
     raise ValueError(f"unknown decoder {kind!r}; known: {DECODER_NAMES}")

@@ -1,0 +1,399 @@
+"""Batched penalized QP-ADMM LDPC decoding (paper arXiv:1910.12712;
+counterpart of ``ldpc_tpu/decoders/admm.py``).
+
+The per-trial sparse problem of the reference (``ConstructADMMProblem``,
+``qp_admm.h:13-102``) depends only on H, so it is built once on the host as
+padded index and coefficient tables (:class:`ADMMStructure`). The iteration
+(``qp_admm.h:130-163``) is gathers and elementwise updates over a
+``(B, n_var)`` / ``(B, n_con)`` batch, with the scalar code's early
+``break`` (``sum2 < eps_stop``) as a per-lane done mask: a done lane is
+frozen, so each lane gives what the scalar code gives.
+
+Cascade construction (``qp_admm.h:58-93``):
+
+* degree-1 check on x:            x <= 0
+* degree-2 check on (x_i, x_j):   x_i - x_j <= 0 and x_j - x_i <= 0
+* degree-d (d >= 3): a chain of d-2 three-variable parity constraints
+  through d-3 auxiliary variables; each 3-variable check (i, j, h) gives
+  the four inequalities (+,-,-) <= 0, (-,+,-) <= 0, (-,-,+) <= 0,
+  (+,+,+) <= 2 (``add_three``, ``qp_admm.h:34-57``).
+
+The certificate is True whenever the precondition ``min(e) * mu > alpha``
+holds; otherwise the whole batch fails with the all-zero word
+(``qp_admm.h:108-114,166``).
+
+JAX's ``while_loop`` tests ``all(done)`` before every iteration. Here the
+iterations run in blocks of ``CHECK_EVERY`` (32) with one host read of
+``all(done)`` per block, never past ``max_iter``. Running a few
+iterations more changes nothing: a done lane is frozen, ``now_done`` is
+``~done & ...`` and a lane's iteration count is written only when it stops.
+Sums are taken in the JAX package's order: each variable's ``k_max`` slots
+one after another in slot order (padding slots add exact zeros), each
+constraint's three slots likewise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import DecodeResult, resolve_device
+
+__all__ = ["ADMMStructure", "QPADMMDecoder", "decode_qp_admm"]
+
+CHECK_EVERY = 32       # iterations between host reads of all(done)
+
+
+def _structure_caps(h: np.ndarray) -> tuple[int, int, int]:
+    """Exact (n_var, n_con, k_max) for the cascade of H, vectorised."""
+    h = np.asarray(h, dtype=np.uint8) % 2
+    n = h.shape[1]
+    deg = h.sum(axis=1).astype(np.int64)
+    n_aux = int(np.maximum(deg - 3, 0).sum())
+    n_con = int(np.where(deg >= 3, 4 * np.maximum(deg - 2, 0),
+                         np.where(deg == 2, 2, deg)).sum())
+    # per-variable constraint-entry counts: a variable in a degree-d check
+    # gains 4 (d >= 3 cascade), 2 (d == 2) or 1 (d == 1) entries; each
+    # auxiliary variable gains 8
+    contrib = np.where(deg >= 3, 4, np.where(deg == 2, 2, 1))
+    k_var = (h.astype(np.int64) * contrib[:, None]).sum(axis=0)
+    k_max = int(k_var.max(initial=0))
+    if (deg >= 4).any():
+        k_max = max(k_max, 8)
+    return n + n_aux, n_con, max(k_max, 1)
+
+
+@dataclass(frozen=True)
+class ADMMStructure:
+    """Static constraint structure of the cascaded parity polytope (host)."""
+
+    n: int                    # codeword length
+    n_var: int                # n + auxiliary variables
+    n_con: int                # constraint rows
+    con_var: np.ndarray       # (n_con, 3) int32 var index per slot; pad n_var
+    con_coef: np.ndarray      # (n_con, 3) float32; pad 0
+    b: np.ndarray             # (n_con,) float32 right-hand sides
+    var_con: np.ndarray       # (n_var, k_max) int32 con index; pad n_con
+    var_coef: np.ndarray      # (n_var, k_max) float32; pad 0
+    e: np.ndarray             # (n_var,) float32: sum of squared coefficients
+
+    @staticmethod
+    def from_h(h: np.ndarray, n_var_cap: int | None = None,
+               n_con_cap: int | None = None,
+               k_max_cap: int | None = None) -> "ADMMStructure":
+        """Build the cascade from H. Optional caps pad the tables to fixed
+        capacities, so that structures of different H with the same caps
+        stack."""
+        h = np.asarray(h, dtype=np.uint8) % 2
+        m, n = h.shape
+        cons: list[tuple[list[int], list[float], float]] = []
+
+        def add(varids, coefs, rhs):
+            cons.append((list(varids), list(coefs), float(rhs)))
+
+        def add_three(i, j, k):
+            add([i, j, k], [1.0, -1.0, -1.0], 0.0)
+            add([i, j, k], [-1.0, 1.0, -1.0], 0.0)
+            add([i, j, k], [-1.0, -1.0, 1.0], 0.0)
+            add([i, j, k], [1.0, 1.0, 1.0], 2.0)
+
+        pos = n
+        for i in range(m):
+            idx = np.nonzero(h[i])[0].tolist()
+            if not idx:
+                continue
+            if len(idx) == 1:
+                add([idx[0]], [1.0], 0.0)
+                continue
+            if len(idx) == 2:
+                add([idx[0], idx[1]], [1.0, -1.0], 0.0)
+                add([idx[0], idx[1]], [-1.0, 1.0], 0.0)
+                continue
+            last = idx[0]
+            for j in range(1, len(idx) - 2):
+                aux = pos
+                pos += 1
+                add_three(last, idx[j], aux)
+                last = aux
+            add_three(last, idx[-2], idx[-1])
+
+        n_var = pos
+        n_con = len(cons)
+        nv = n_var_cap or n_var
+        nc = n_con_cap or n_con
+        if nv < n_var or nc < n_con:
+            raise ValueError(f"caps ({nv}, {nc}) below the cascade's "
+                             f"({n_var}, {n_con})")
+
+        con_var = np.full((nc, 3), nv, dtype=np.int32)
+        con_coef = np.zeros((nc, 3), dtype=np.float32)
+        b = np.zeros((nc,), dtype=np.float32)
+        per_var: list[list[tuple[int, float]]] = [[] for _ in range(nv)]
+        for ci, (vids, cfs, rhs) in enumerate(cons):
+            b[ci] = rhs
+            for s, (vi, cf) in enumerate(zip(vids, cfs)):
+                con_var[ci, s] = vi
+                con_coef[ci, s] = cf
+                per_var[vi].append((ci, cf))
+
+        k_max = k_max_cap or max((len(p) for p in per_var), default=1)
+        if any(len(p) > k_max for p in per_var):
+            raise ValueError(f"k_max cap {k_max} below the cascade's")
+        var_con = np.full((nv, k_max), nc, dtype=np.int32)
+        var_coef = np.zeros((nv, k_max), dtype=np.float32)
+        e = np.zeros((nv,), dtype=np.float32)
+        for vi, plist in enumerate(per_var):
+            for s, (ci, cf) in enumerate(plist):
+                var_con[vi, s] = ci
+                var_coef[vi, s] = cf
+                e[vi] += cf * cf
+        # capacity-padded phantom variables get e == 0; e_min leaves them out
+        return ADMMStructure(n=n, n_var=nv, n_con=nc, con_var=con_var,
+                             con_coef=con_coef, b=b, var_con=var_con,
+                             var_coef=var_coef, e=e)
+
+    @property
+    def e_min(self) -> float:
+        """min(e) over the real variables (phantom capacity rows have
+        e == 0)."""
+        real = self.e[self.e > 0]
+        return float(real.min()) if real.size else float("inf")
+
+
+def _pad_to_zero(idx: torch.Tensor, pad: int) -> torch.Tensor:
+    """int64 copy of an index table with its padding value ``pad`` set
+    to 0."""
+    idx = idx.long()
+    return torch.where(idx == pad, 0, idx)
+
+
+def _lane_param(p, bsz: int, device: torch.device) -> torch.Tensor:
+    """(B, 1) float32 per-lane copy of a scalar or (B,) parameter. A scalar
+    becomes a fill (no host-to-device copy, so no stream sync)."""
+    if isinstance(p, torch.Tensor):
+        t = p.to(device=device, dtype=torch.float32)
+        if t.dim() == 0:
+            t = t.reshape(1)
+        return t.reshape(-1, 1).expand(bsz, 1)
+    return torch.full((bsz, 1), float(p), dtype=torch.float32, device=device)
+
+
+class _Iteration:
+    """One reference iteration (``qp_admm.h:130-163``) over explicit
+    structure tensors, with per-lane alpha and mu and done-lane freezing.
+
+    ``tables``: dict of con_var (nc, 3) int, con_coef (nc, 3) f32, b (nc,)
+    f32, var_con (nv, k) int, var_coef (nv, k) f32, e (nv,) f32, on one
+    device (possibly capacity-padded: phantom variables and constraints
+    carry zero coefficients).
+    """
+
+    def __init__(self, tables: dict, alpha: torch.Tensor, mu: torch.Tensor,
+                 eps_stop: float):
+        var_con, e = tables["var_con"], tables["e"]
+        self.n_var, self.k = var_con.shape
+        self.n_con = tables["con_var"].shape[0]
+        self.b = tables["b"]
+        # slot-major gathers: slot s of every variable is one contiguous
+        # run. A padding slot (index n_con or n_var, coefficient 0) reads
+        # entry 0 instead of JAX's appended zero column: its product is
+        # still a zero, and adding a zero of either sign after the first
+        # slot leaves every sum as it was
+        self.vc_idx = _pad_to_zero(var_con, self.n_con).t().reshape(-1)
+        self.vc_coef = tables["var_coef"].t().contiguous()       # (k, nv)
+        self.cv_idx = _pad_to_zero(tables["con_var"], self.n_var).t(
+            ).reshape(-1)
+        self.cv_coef = tables["con_coef"].t().contiguous()       # (3, nc)
+        self.alpha, self.mu = alpha, mu                           # (B, 1)
+        self.half_alpha = alpha / 2.0
+        # phantom capacity variables have e == 0 (denom == -alpha); their q
+        # is 0 and they appear in no constraint, so their value is inert.
+        # Guard the division anyway.
+        denom = mu * e[None] - alpha
+        one = torch.ones((), dtype=torch.float32, device=e.device)
+        self.inv_coef = -one / torch.where(denom == 0, one, denom)
+        self.eps_stop = float(eps_stop)
+
+    def _gather_con(self, t: torch.Tensor) -> torch.Tensor:
+        bsz = t.shape[0]
+        g = t.index_select(1, self.vc_idx).view(bsz, self.k, self.n_var)
+        p = g * self.vc_coef
+        acc = p[:, 0]
+        for s in range(1, self.k):          # slot order, as JAX sums them
+            acc = acc + p[:, s]
+        return acc
+
+    def _gather_var(self, v: torch.Tensor) -> torch.Tensor:
+        bsz = v.shape[0]
+        g = v.index_select(1, self.cv_idx).view(bsz, 3, self.n_con)
+        p = g * self.cv_coef
+        return (p[:, 0] + p[:, 1]) + p[:, 2]
+
+    def __call__(self, q, v, z, yl, done):
+        """Returns (v, z, yl, now_done)."""
+        t = yl + self.mu * (z - self.b)
+        bq = (q + self.half_alpha) + self._gather_con(t)
+        v_new = (bq * self.inv_coef).clamp(0.0, 1.0)
+        r = self.b - self._gather_var(v_new)
+        z_new = (r - yl).clamp_min(0.0)
+        y_new = (yl - r).clamp_min(0.0)
+        d = z_new - r
+        sum2 = (d * d).sum(dim=-1)
+        keep = done[:, None]                       # the scalar code's break
+        v = torch.where(keep, v, v_new)
+        z = torch.where(keep, z, z_new)
+        yl = torch.where(keep, yl, y_new)
+        now_done = ~done & (sum2 < self.eps_stop)
+        return v, z, yl, now_done
+
+
+def _objective(llrs: torch.Tensor, n_var: int) -> torch.Tensor:
+    """q: the LLRs padded with zeros for the auxiliary variables."""
+    llrs = llrs.to(torch.float32)
+    return torch.cat([llrs, llrs.new_zeros((llrs.shape[0],
+                                            n_var - llrs.shape[1]))], dim=1)
+
+
+def _feasible_lanes(e: torch.Tensor, alpha, mu) -> torch.Tensor:
+    """(B,) bool: the precondition ``min(e) * mu > alpha``
+    (``qp_admm.h:108-114``) per lane, in float32 as the JAX package
+    evaluates it."""
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=e.device)
+    e_min = torch.where(e > 0, e, inf).amin()
+    return (e_min * mu > alpha).reshape(-1)
+
+
+def decode_qp_admm(tables: dict, n: int, llrs: torch.Tensor, alpha, mu,
+                   max_iter: int, eps_stop: float) -> DecodeResult:
+    """QP-ADMM decode of a (B, n) float32 batch over explicit structure
+    tensors (see :class:`_Iteration`). ``alpha`` and ``mu`` are scalars or
+    (B,) tensors: each lane runs with its own pair and its own
+    precondition."""
+    bsz, dev = llrs.shape[0], llrs.device
+    alpha_l = _lane_param(alpha, bsz, dev)
+    mu_l = _lane_param(mu, bsz, dev)
+    step = _Iteration(tables, alpha_l, mu_l, eps_stop)
+    q = _objective(llrs, step.n_var)
+    v = (q > 0.0).to(torch.float32)                 # qp_admm.h:116-119
+    z = q.new_zeros((bsz, step.n_con))
+    yl = q.new_zeros((bsz, step.n_con))
+    done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+    done_it = torch.full((bsz,), int(max_iter), dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iter:
+        for _ in range(min(CHECK_EVERY, max_iter - it)):
+            v, z, yl, now_done = step(q, v, z, yl, done)
+            done_it = torch.where(now_done, it + 1, done_it)
+            done = done | now_done
+            it += 1
+        if bool(done.all()):
+            break
+    ok = _feasible_lanes(tables["e"], alpha_l, mu_l)
+    bits = ((v[:, :n] > 0.5) & ok[:, None]).to(torch.uint8)
+    return DecodeResult(bits=bits, success=ok, iterations=done_it)
+
+
+class QPADMMDecoder(nn.Module):
+    """Penalised-objective ADMM decoder specialised to one H, its structure
+    tables as buffers.
+
+    Defaults are the reference's OPTIMAL configuration: alpha = 1.2,
+    mu = 0.55, max_iter = 10000, eps_stop = 1e-5 (``main.cpp:30-34``).
+    """
+
+    # the streaming protocol (harness.experiment.run_streaming_experiment):
+    # chunks of stream_chunk_iters iterations; finished lanes are refilled
+    # between chunks, so a batch no longer waits on its slowest lane
+    stream_chunk_iters = 512
+
+    def __init__(self, h, alpha: float = 1.2, mu: float = 0.55,
+                 max_iter: int = 10000, eps_stop: float = 1e-5,
+                 structure: ADMMStructure | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.name = "QP-ADMM"
+        self.structure = s = structure or ADMMStructure.from_h(np.asarray(h))
+        self.n = s.n
+        self.alpha = float(alpha)
+        self.mu = float(mu)
+        self.max_iter = int(max_iter)
+        self.eps_stop = float(eps_stop)
+        for name in ("con_var", "con_coef", "b", "var_con", "var_coef", "e"):
+            self.register_buffer(name, torch.from_numpy(
+                np.ascontiguousarray(getattr(s, name))).to(device))
+
+    @property
+    def tables(self) -> dict:
+        return {"con_var": self.con_var, "con_coef": self.con_coef,
+                "b": self.b, "var_con": self.var_con,
+                "var_coef": self.var_coef, "e": self.e}
+
+    def _check(self, llrs: torch.Tensor) -> None:
+        if llrs.device != self.e.device:
+            raise ValueError(f"llrs on {llrs.device}, decoder on "
+                             f"{self.e.device}")
+
+    def decode_batch(self, llrs: torch.Tensor) -> DecodeResult:
+        """(B, n) float32 LLRs on the decoder's device -> DecodeResult."""
+        return self.decode_batch_params(llrs, self.alpha, self.mu)
+
+    def decode_batch_params(self, llrs: torch.Tensor, alpha,
+                            mu) -> DecodeResult:
+        """Decode with per-call (alpha, mu): scalars, or (B,) tensors giving
+        each lane its own pair (the grid search's cells as a batch axis)."""
+        self._check(llrs)
+        return decode_qp_admm(self.tables, self.n, llrs, alpha, mu,
+                              self.max_iter, self.eps_stop)
+
+    # ------------------------------------------------------------------
+    def _lane_params(self, bsz: int, device) -> tuple:
+        return (_lane_param(self.alpha, bsz, device),
+                _lane_param(self.mu, bsz, device))
+
+    def stream_init(self, llrs: torch.Tensor) -> dict:
+        """Fresh per-lane solver state for a batch of LLRs."""
+        self._check(llrs)
+        bsz, dev = llrs.shape[0], llrs.device
+        q = _objective(llrs, self.structure.n_var)
+        n_con = self.structure.n_con
+        return {"q": q, "v": (q > 0.0).to(torch.float32),
+                "z": q.new_zeros((bsz, n_con)),
+                "yl": q.new_zeros((bsz, n_con)),
+                "done": torch.zeros((bsz,), dtype=torch.bool, device=dev),
+                "it": torch.zeros((bsz,), dtype=torch.int32, device=dev)}
+
+    def stream_chunk(self, state: dict) -> dict:
+        """Up to ``stream_chunk_iters`` iterations, in blocks of
+        ``CHECK_EVERY`` with one host read of ``all(done)`` before each
+        (so a chunk of done lanes costs one read and no iteration).
+
+        A lane is done when it converged (``sum2 < eps_stop``) or its own
+        iteration count reached ``max_iter``; the counts are per lane, so a
+        refilled lane starts from 0.
+        """
+        q, v, z, yl = state["q"], state["v"], state["z"], state["yl"]
+        done, it = state["done"], state["it"]
+        step = _Iteration(self.tables, *self._lane_params(q.shape[0],
+                                                          q.device),
+                          self.eps_stop)
+        k = 0
+        while k < self.stream_chunk_iters and not bool(done.all()):
+            for _ in range(min(CHECK_EVERY, self.stream_chunk_iters - k)):
+                v, z, yl, now_done = step(q, v, z, yl, done)
+                it = it + (~done).to(torch.int32)
+                done = done | now_done | (it >= self.max_iter)
+                k += 1
+        return {"q": q, "v": v, "z": z, "yl": yl, "done": done, "it": it}
+
+    def stream_done(self, state: dict) -> torch.Tensor:
+        return state["done"]
+
+    def stream_finish(self, state: dict) -> DecodeResult:
+        v = state["v"]
+        ok = _feasible_lanes(self.e, *self._lane_params(v.shape[0],
+                                                        v.device))
+        bits = ((v[:, :self.n] > 0.5) & ok[:, None]).to(torch.uint8)
+        return DecodeResult(bits=bits, success=ok, iterations=state["it"])

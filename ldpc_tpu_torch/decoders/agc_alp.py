@@ -32,11 +32,9 @@ class AGCALPDecoder(_AdaptiveLPBase):
     its twin on the CPU), which skips the lanes that need no gauss cut;
     ``"auto"`` is ``"kernel"`` on CUDA and ``"xla"`` on the CPU.
 
-    The JAX package's ``run_experiment`` streams AGC-ALP, draining converged
-    lanes and refilling them between rounds
-    (``ldpc_tpu/harness/experiment.py:329-330``); the port does not yet
-    (ROADMAP item 9): it runs on the batched runner, and a batch lasts as
-    long as its slowest lane.
+    ``run_experiment`` streams AGC-ALP (``streaming="auto"``), as the JAX
+    package does: finished lanes are drained after each cut round and
+    refilled with the next trials (``_AdaptiveLPBase.stream_*``).
     """
 
     use_gauss = True

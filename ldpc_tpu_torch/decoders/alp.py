@@ -25,7 +25,8 @@ count, read with the number of working lanes), and the loop's ``all(done)``;
 the PDHG solver makes one per chunk after its first, the IPM one per chunk.
 With the Gaussian cut source (AGC-ALP) a round makes one more, whether any
 lane needs the elimination (JAX's ``lax.cond(any(need))``), and, when one
-does, a fourth, the second append's ``nonzero``.
+does, a fourth, the second append's ``nonzero``. Streamed, a round makes two
+more: the chunk's ``all(done)`` and the refill's ``nonzero``.
 """
 from __future__ import annotations
 
@@ -361,10 +362,13 @@ class _AdaptiveLPBase(nn.Module):
                 "rounds": lane_rounds, "cum_h": state["cum_h"] + n_h,
                 "cum_g": cum_g, "h1": hstate[0], "h2": hstate[1]}
 
-    def _run_loop(self, llrs: torch.Tensor) -> dict:
+    def _check_device(self, llrs: torch.Tensor) -> None:
         if llrs.device != self.h.device:
             raise ValueError(f"llrs on {llrs.device}, decoder on "
                              f"{self.h.device}")
+
+    def _run_loop(self, llrs: torch.Tensor) -> dict:
+        self._check_device(llrs)
         state = self._init_state(llrs)
         while not bool(state["done"].all()):
             state = self._round_body(state)
@@ -384,6 +388,28 @@ class _AdaptiveLPBase(nn.Module):
         the capacity)."""
         return self._finish(self._run_loop(llrs))
 
+    # ------------------------------------------------------------------
+    # Streaming protocol (harness.experiment.run_streaming_experiment): one
+    # chunk is one cut round; finished lanes are drained between rounds and
+    # their slots refilled from the trial stream, so a lane that spins to
+    # the round budget no longer holds the whole batch.
+    def stream_init(self, llrs: torch.Tensor) -> dict:
+        self._check_device(llrs)
+        return self._init_state(llrs)
+
+    def stream_chunk(self, st: dict) -> dict:
+        """One cut round; nothing when every lane is done (one host
+        read)."""
+        if bool(st["done"].all()):
+            return st
+        return self._round_body(st)
+
+    def stream_done(self, st: dict) -> torch.Tensor:
+        return st["done"]
+
+    def stream_finish(self, st: dict) -> DecodeResult:
+        return self._finish(st)
+
     def stats(self, llrs: torch.Tensor) -> dict:
         """Cut-loop telemetry: per-lane final active-cut count, rounds
         worked, integrality, done flag, error, drops and cuts appended."""
@@ -401,7 +427,9 @@ class ALPDecoder(_AdaptiveLPBase):
     has no row cap for plain ALP; ``max_rows`` defaults to ``max(512, 2m)``
     (one round can add up to m cuts, so a cap below ~2m binds on larger
     codes). The inner solve runs 64-step chunks up to 2048 steps.
-    ``prefer_streaming`` is False: ALP runs on the batched runner."""
+    ``prefer_streaming`` is False: ``run_experiment``'s ``streaming="auto"``
+    keeps ALP on the batched runner, as the JAX package does
+    (``alp.py:480``); ``streaming=True`` streams it."""
 
     use_gauss = False
     prefer_streaming = False

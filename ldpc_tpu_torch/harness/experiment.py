@@ -5,7 +5,7 @@ A batch step is split in two so that each half can be checked on its own:
 
 * :func:`channel_step`: codewords and trial indices -> received symbols y,
   with noise keyed by ``(seed, trial index)``, so results do not depend on
-  batch size or device;
+  batch size, batch order or device;
 * :func:`count_step`: y -> LLRs -> decode -> the eight counters of one batch.
 
 Classification as the reference's ``exp`` (``experiment.h:109-118``):
@@ -14,25 +14,35 @@ Classification as the reference's ``exp`` (``experiment.h:109-118``):
 frame error. The Hamming counters count channel hard-decision errors
 (y <= 0 for bit 0, y > 0 for bit 1), split by correct / wrong.
 
-:func:`run_experiment` uploads the codewords once, loops over batches on the
-device, keeps int64 counters on the device, and reads them back once at the
-end. Warm-up (the kernel build and the first launch of each batch shape)
-runs before the timed window.
+Three runners, each keeping int64 counters on the device and reading them
+back once at the end; warm-up (kernel builds, first launches) runs before
+the timed window:
+
+* :func:`run_experiment`, batched: fixed batches, a last smaller one for
+  the remainder. With ``streaming="auto"`` it hands decoders that have the
+  streaming protocol to
+* :func:`run_streaming_experiment`: the decoder advances in chunks; after
+  each chunk the finished lanes are classified into the counters and their
+  slots refilled with the next trials, so a batch does not wait on its
+  slowest lane (the reference's work queue, ``experiment.h:86-93``);
+* :func:`run_multi_snr_experiment`: lanes at several SNRs share each batch
+  (a per-lane noise scale), counters reduced per SNR.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
-from ..channel.awgn import llr_variance, transmit
+from ..channel.awgn import noise_scales, snr_table, transmit, transmit_lanes
 from ..codes.gf2 import is_codeword
-from ..decoders.base import Decoder, resolve_device
+from ..decoders.base import DecodeResult, Decoder, resolve_device
 
 __all__ = ["COUNTERS", "ExperimentResult", "channel_step", "count_step",
-           "make_experiment_step", "run_experiment"]
+           "make_experiment_step", "make_multi_snr_step", "run_experiment",
+           "run_multi_snr_experiment", "run_streaming_experiment"]
 
 # order of the counters in the (8,) int64 vectors the steps return
 COUNTERS = ("total", "correct", "pseudo", "sum_hamming", "sum_hamming_ok",
@@ -80,6 +90,12 @@ class ExperimentResult:
     def mean_hamming_wrong(self) -> float:
         return self.sum_hamming_wrong / max(1, self.total - self.correct)
 
+    def merge(self, other: "ExperimentResult") -> None:
+        """Add ``other``'s counters and time to this one."""
+        for f in fields(self):
+            setattr(self, f.name, getattr(self, f.name) + getattr(other,
+                                                                   f.name))
+
 
 def channel_step(codewords: torch.Tensor, trial_idx: torch.Tensor,
                  snr: float, seed: int) -> torch.Tensor:
@@ -87,30 +103,32 @@ def channel_step(codewords: torch.Tensor, trial_idx: torch.Tensor,
     return transmit(codewords, snr, seed, trial_idx)
 
 
+def _hamming(codewords: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 channel hard-decision errors (``experiment.h:33-46``)."""
+    return torch.where(codewords == 0, y <= 0, y > 0).sum(dim=-1)
+
+
+def _lane_counters(h: torch.Tensor, res: DecodeResult,
+                   codewords: torch.Tensor, hd: torch.Tensor) -> torch.Tensor:
+    """Each lane's contribution to the counters: (8, B) int64 in
+    :data:`COUNTERS` order."""
+    valid = res.success & is_codeword(h, res.bits)
+    match = (res.bits == codewords).all(dim=-1)
+    correct = valid & match
+    zero = torch.zeros_like(hd)
+    dropped = res.dropped if res.dropped is not None else zero
+    return torch.stack([x.to(torch.int64) for x in (
+        torch.ones_like(hd), correct, valid & ~match, hd,
+        torch.where(correct, hd, zero), torch.where(correct, zero, hd),
+        res.iterations, dropped)])
+
+
 def count_step(decoder: Decoder, h: torch.Tensor, codewords: torch.Tensor,
                y: torch.Tensor, snr: float) -> torch.Tensor:
     """Decode y and classify each frame; returns the batch's counters as an
     (8,) int64 tensor in :data:`COUNTERS` order, on y's device."""
-    inv_var = 2.0 / llr_variance(snr)
-    res = decoder.decode_batch(inv_var * y)
-    valid = res.success & is_codeword(h, res.bits)
-    match = (res.bits == codewords).all(dim=-1)
-    correct = valid & match
-    pseudo = valid & ~match
-    hd = torch.where(codewords == 0, y <= 0, y > 0).sum(dim=-1)
-    zero = torch.zeros_like(hd)
-    i64 = torch.int64
-    return torch.stack([
-        torch.full((), codewords.shape[0], dtype=i64, device=y.device),
-        correct.sum(dtype=i64),
-        pseudo.sum(dtype=i64),
-        hd.sum(dtype=i64),
-        torch.where(correct, hd, zero).sum(dtype=i64),
-        torch.where(correct, zero, hd).sum(dtype=i64),
-        res.iterations.sum(dtype=i64),
-        (res.dropped.sum(dtype=i64) if res.dropped is not None
-         else torch.zeros((), dtype=i64, device=y.device)),
-    ])
+    res = decoder.decode_batch(noise_scales(snr)[1] * y)
+    return _lane_counters(h, res, codewords, _hamming(codewords, y)).sum(dim=1)
 
 
 def make_experiment_step(decoder: Decoder, h, snr: float, seed: int,
@@ -131,16 +149,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _result(counters: torch.Tensor, time_sec: float) -> ExperimentResult:
+    return ExperimentResult(**dict(zip(COUNTERS, counters.tolist())),
+                            time_sec=time_sec)
+
+
 def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
                    batch_size: int = 1024, device: torch.device | str = "cuda",
-                   warmup: bool = True) -> ExperimentResult:
+                   warmup: bool = True,
+                   streaming: str | bool = "auto") -> ExperimentResult:
     """FER estimation over all ``codewords`` (T, n) at one SNR on one device.
 
     Trials run in batches of ``batch_size`` with a last, smaller batch for
     the remainder; trial ``t``'s noise is keyed by ``(seed, t)``.
     ``time_sec`` covers the batch loop only, from a synchronised start to a
     synchronised end.
+
+    ``streaming``: True runs :func:`run_streaming_experiment`; ``"auto"``
+    does so when the decoder has the streaming protocol (``stream_init``),
+    does not set ``prefer_streaming = False`` and there are at least two
+    batches of trials, as the JAX package decides (``experiment.py:328``).
     """
+    if streaming == "auto":
+        streaming = (hasattr(decoder, "stream_init")
+                     and getattr(decoder, "prefer_streaming", True)
+                     and len(codewords) >= 2 * batch_size)
+    if streaming:
+        return run_streaming_experiment(decoder, h, codewords, snr, seed,
+                                        batch_size=batch_size, device=device,
+                                        warmup=warmup)
     device = resolve_device(device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
     t_total = cw.shape[0]
@@ -160,7 +197,159 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
     for start, stop in bounds:
         acc += step(cw[start:stop], trials(start, stop))
     _sync(device)
+    return _result(acc, time.perf_counter() - t_start)
+
+
+def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
+                             batch_size: int = 256, fetch_every: int = 4,
+                             device: torch.device | str = "cuda",
+                             warmup: bool = True) -> ExperimentResult:
+    """FER estimation with converged-lane draining.
+
+    The decoder's streaming protocol (``stream_init`` / ``stream_chunk`` /
+    ``stream_done`` / ``stream_finish``) advances ``batch_size`` lanes a
+    chunk at a time. After each chunk the finished lanes are classified
+    into the device counters and their slots take the next trials in the
+    JAX package's order (trial ``consumed + cumsum(fin) - 1``), the
+    channel made on the device from the codeword table with the same
+    ``(seed, trial)`` noise as the batched runner, so each trial decodes as
+    it does there. The refill builds ``stream_init`` of the finished lanes'
+    rows only (a decoder's state is per lane) and copies it into their
+    slots of every state entry, in place, so decoders that update buffers
+    in place see every finished lane's slice overwritten. Lanes past the
+    last trial start frozen and stay frozen.
+
+    The host reads one scalar, the active-lane count, every
+    ``fetch_every`` chunks, and doubles ``fetch_every`` (up to 128) while
+    the polls come back within 0.25 s; chunks after the last lane finished
+    do nothing.
+    """
+    device = resolve_device(device)
+    cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
+    t_total = cw.shape[0]
+    h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
+    inv_var = noise_scales(snr)[1]
+    bsz = int(batch_size)
+
+    def make_lane(idx):
+        """(B,) trial indices -> (llrs, codewords, channel Hamming)."""
+        safe = idx.clamp(0, t_total - 1)
+        cwb = cw.index_select(0, safe)
+        y = channel_step(cwb, safe, snr, seed)
+        return inv_var * y, cwb, _hamming(cwb, y)
+
+    def start():
+        idx = torch.arange(bsz, dtype=torch.int64, device=device)
+        llrs, cwb, hd = make_lane(idx)
+        st = decoder.stream_init(llrs)
+        active = idx < t_total
+        st["done"] = st["done"] | ~active
+        consumed = torch.full((), min(bsz, t_total), dtype=torch.int64,
+                              device=device)
+        counters = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                               device=device)
+        return st, idx, cwb, hd, active, consumed, counters
+
+    def step(carry):
+        st, idx, cwb, hd, active, consumed, counters = carry
+        st = decoder.stream_chunk(st)
+        fin = decoder.stream_done(st) & active
+        lanes = _lane_counters(h_dev, decoder.stream_finish(st), cwb, hd)
+        counters = counters + (lanes * fin).sum(dim=1)
+        # refill the finished slots with the next trials of the stream
+        rank = fin.to(torch.int64).cumsum(0)
+        new_idx = consumed + rank - 1
+        idx = torch.where(fin, new_idx, idx)
+        active = torch.where(fin, new_idx < t_total, active)
+        consumed = consumed + rank[-1]
+        llrs, cwb_new, hd_new = make_lane(idx)
+        lanes = fin.nonzero().squeeze(1)          # one host read per chunk
+        if lanes.numel():
+            fresh = decoder.stream_init(llrs.index_select(0, lanes))
+            for key, val in fresh.items():
+                st[key].index_copy_(0, lanes, val)
+        cwb = torch.where(fin[:, None], cwb_new, cwb)
+        hd = torch.where(fin, hd_new, hd)
+        st["done"] = st["done"] | ~active     # inactive lanes stay frozen
+        return (st, idx, cwb, hd, active, consumed, counters), active.sum()
+
+    if warmup:
+        step(start())
+    _sync(device)
+    t_start = time.perf_counter()
+    carry = start()
+    t_poll = time.perf_counter()
+    while True:
+        for _ in range(fetch_every):
+            carry, n_active = step(carry)
+        if int(n_active) == 0:
+            break
+        now = time.perf_counter()
+        if now - t_poll < 0.25 and fetch_every < 128:
+            fetch_every *= 2
+        t_poll = now
+    counters = carry[-1]
+    _sync(device)
+    return _result(counters, time.perf_counter() - t_start)
+
+
+def make_multi_snr_step(decoder: Decoder, h, snrs, seed: int,
+                        device: torch.device | str):
+    """One batch with a per-lane SNR: step(codewords (B, n) uint8,
+    trial_idx (B,) int64, snr_id (B,) int64) -> (8, S) int64 counters per
+    SNR. Lanes at different SNRs share one decode (decoders see only
+    LLRs); each lane's noise scale and LLR factor come from one per-SNR
+    table (:func:`..channel.awgn.snr_table`), so a lane decodes exactly as
+    in a single-SNR run."""
+    h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
+    sigmas, inv_vars = snr_table(snrs, device)
+    s_count = len(sigmas)
+
+    def step(codewords, trial_idx, snr_id):
+        y = transmit_lanes(codewords, sigmas[snr_id], seed, trial_idx)
+        res = decoder.decode_batch(inv_vars[snr_id][:, None] * y)
+        lanes = _lane_counters(h_dev, res, codewords, _hamming(codewords, y))
+        out = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
+                          device=lanes.device)
+        return out.index_add_(1, snr_id, lanes)
+
+    return step
+
+
+def run_multi_snr_experiment(decoder: Decoder, h, codewords, snrs,
+                             seed: int, batch_size: int = 2048,
+                             device: torch.device | str = "cuda",
+                             warmup: bool = True) -> list[ExperimentResult]:
+    """The whole SNR sweep as one trial stream: every (SNR, trial) pair is a
+    lane, interleaved so each batch mixes the SNRs (trial t at SNR s is lane
+    ``t * S + s``), decoded in batches of ``batch_size``. Returns one
+    result per SNR, in ``snrs`` order, each timed with an equal share of the
+    elapsed time (as the JAX package apportions it)."""
+    device = resolve_device(device)
+    cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
+    t_total = cw.shape[0]
+    s_count = len(snrs)
+    step = make_multi_snr_step(decoder, h, snrs, seed, device)
+    snr_ids = torch.arange(s_count, device=device).repeat(t_total)
+    trial_idx = torch.arange(t_total, device=device).repeat_interleave(
+        s_count)
+    total = s_count * t_total
+    bounds = [(s, min(s + batch_size, total))
+              for s in range(0, total, batch_size)]
+
+    def run_batch(start, stop):
+        idx = trial_idx[start:stop]
+        return step(cw.index_select(0, idx), idx, snr_ids[start:stop])
+
+    if warmup:  # build the kernel and launch every batch shape once
+        for bsz in sorted({stop - start for start, stop in bounds}):
+            run_batch(0, bsz)
+    acc = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
+                      device=device)
+    _sync(device)
+    t_start = time.perf_counter()
+    for start, stop in bounds:
+        acc += run_batch(start, stop)
+    _sync(device)
     elapsed = time.perf_counter() - t_start
-    result = ExperimentResult(**dict(zip(COUNTERS, acc.tolist())))
-    result.time_sec = elapsed
-    return result
+    return [_result(acc[:, si], elapsed / s_count) for si in range(s_count)]

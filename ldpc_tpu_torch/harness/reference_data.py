@@ -1,10 +1,15 @@
-"""Reference golden FER curve and the statistical-parity test (from
+"""Reference golden FER curves and the statistical-parity helpers (from
 ``ldpc_tpu/harness/reference_data.py``).
 
-The reference publishes 10,000 Monte-Carlo trials per (decoder, SNR) point
-(``reports/report_opt.csv``, matrix ``data/optimalH.txt``). Its ``mt19937``
-sample path cannot be matched bit for bit, so parity is |z| < Z_BOUND under
-the two-proportion z-test.
+The reference publishes two result sets, ``reports/report_opt.csv`` (matrix
+``data/optimalH.txt``) and ``reports/report_H05.csv`` (``data/H05.txt``),
+10,000 Monte-Carlo trials per (decoder, SNR) point (``main.cpp:42-92``, seed
+239'239'239). Their ``mt19937`` sample path cannot be matched bit for bit, so
+parity is |z| < Z_BOUND under the two-proportion z-test.
+
+The H05 run used the non-``OPTIMAL`` build, whose QP-ADMM runs at
+alpha = 1.95, mu = 0.5 (``main.cpp:30-34``); BP, ALP and AGC-ALP are
+configured alike in both runs.
 """
 from __future__ import annotations
 
@@ -27,6 +32,27 @@ REF_FER_OPT = {
 }
 
 
+# reports/report_H05.csv rows 2-45 (matrix data/H05.txt; QP-ADMM at
+# alpha=1.95, mu=0.5)
+REF_FER_H05 = {
+    "BP":      [0.9986, 0.9845, 0.9264, 0.7683, 0.5185, 0.2623, 0.1038,
+                0.0510, 0.0343, 0.0323, 0.0356],
+    "QP-ADMM": [0.9871, 0.9438, 0.8240, 0.5980, 0.3380, 0.1361, 0.0379,
+                0.0071, 0.0016, 0.0000, 0.0000],
+    "ALP":     [1.0000, 1.0000, 0.9986, 0.9892, 0.9497, 0.8289, 0.5974,
+                0.3081, 0.1037, 0.0220, 0.0028],
+    "AGC-ALP": [0.9999, 0.9987, 0.9890, 0.9506, 0.8307, 0.5965, 0.2980,
+                0.0983, 0.0179, 0.0015, 0.0000],
+}
+
+REF_TABLES = {"optimalH": REF_FER_OPT, "H05": REF_FER_H05}
+
+
+def ref_fer(matrix: str, method: str, snr: float) -> float:
+    """Golden FER for (matrix in {optimalH, H05}, method, snr)."""
+    return REF_TABLES[matrix][method][SNR_GRID.index(round(float(snr), 1))]
+
+
 def z_score(p_ours: float, n_ours: int, p_ref: float,
             n_ref: int = REF_TRIALS) -> float:
     """Two-proportion z statistic (pooled); 0 when both estimates are 0."""
@@ -35,3 +61,15 @@ def z_score(p_ours: float, n_ours: int, p_ref: float,
     if var <= 0.0:
         return 0.0 if p_ours == p_ref else math.inf
     return (p_ours - p_ref) / math.sqrt(var)
+
+
+def suggested_trials(p_ref: float, lo: int = 2000, mid: int = 4000,
+                     hi: int = 10_000) -> int:
+    """Trial budget giving comparable test power across the FER range: the
+    z-test resolves with sqrt(n / (p (1 - p))), so high-FER points need far
+    fewer trials than the low-FER tail."""
+    if p_ref > 0.3:
+        return lo
+    if p_ref > 0.08:
+        return mid
+    return hi

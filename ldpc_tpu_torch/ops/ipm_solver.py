@@ -53,6 +53,7 @@ from .chol_ref import cholesky_nan
 from .gemv_kernel import (batched_gemv, batched_gemv_t, normal_build,
                           pack_rows)
 from .gemv_ref import gemv_ref, gemv_t_ref, normal_ref
+from .lp_solver import require_full_f32
 
 __all__ = ["FACTOR_BACKENDS", "MATVEC_BACKENDS", "ipm_box_lp"]
 
@@ -67,15 +68,6 @@ def _pos_step(v, dv, frac: float = 0.995):
     ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0), float("inf"))
     amax = ratio.reshape(ratio.shape[0], -1).amin(dim=-1)
     return torch.clamp_max(frac * amax, 1.0)
-
-
-def _check_precision() -> None:
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "ipm_box_lp needs full float32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
 
 
 def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
@@ -101,7 +93,7 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     Returns (x (B, n), y (B, R) duals of A x <= b in the caller's units,
     err (B,) = max(primal violation, relative duality gap)).
     """
-    _check_precision()
+    require_full_f32("ipm_box_lp")
     dev = a_rows.device
     on_cuda = dev.type == "cuda"
     if matvec_backend not in MATVEC_BACKENDS:

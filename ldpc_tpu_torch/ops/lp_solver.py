@@ -10,13 +10,16 @@ with diagonal preconditioners from the active constraint rows. Constraints
 are dense signed rows (B, R, n), one matrix per lane; inactive rows are all
 zero with rhs 0, which keeps their duals at 0.
 
-Two solvers with the same semantics:
+Three solvers:
 
 * :func:`pdhg_box_lp`, the plain one (the JAX package's ``"xla"`` backend):
   batched ``torch.bmm`` matvecs, two per step;
 * :func:`pdhg_box_lp_fused`, which runs each ``check_every``-step chunk as
   one call of :func:`..ops.pdhg_kernel.pdhg_chunk` (the CUDA kernel on a CUDA
-  tensor, its plain twin on a CPU tensor).
+  tensor, its plain twin on a CPU tensor);
+* :func:`pdhg_box_lp_shared`, fixed-iteration PDHG with one (R, n) matrix
+  shared by the batch (Full LP): its two products are plain GEMMs, as in the
+  JAX package, which computes them outside any Pallas kernel.
 
 JAX's ``fori_loop(cond(...))`` chunk loop is a Python loop here: before each
 chunk the host reads the batch-max error, one device sync per chunk (at most
@@ -33,7 +36,19 @@ import torch
 from .pdhg_kernel import pdhg_chunk
 from .pdhg_ref import lane_err, pdhg_step
 
-__all__ = ["pdhg_box_lp", "pdhg_box_lp_fused", "pdhg_steps"]
+__all__ = ["pdhg_box_lp", "pdhg_box_lp_fused", "pdhg_box_lp_shared",
+           "pdhg_steps", "require_full_f32"]
+
+
+def require_full_f32(caller: str) -> None:
+    """Raise unless float32 matmuls run in full float32: TF32 would
+    silently change every product."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{caller} needs full float32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
 
 
 def pdhg_steps(a_rows: torch.Tensor, safety: float = 0.95,
@@ -187,3 +202,27 @@ def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
         v = torch.full((a_rows.shape[0],), float("inf"),
                        dtype=torch.float32, device=a_rows.device)
     return x, y, v
+
+
+def pdhg_box_lp_shared(c, a, b, x0, y0, iters: int, safety: float = 0.95):
+    """``iters`` preconditioned PDHG steps with a constraint matrix shared
+    by the batch (``ldpc_tpu/ops/lp_solver.py:204-223``).
+
+    c, x0 (B, n); a (R, n); b (R,); y0 (B, R). Returns (x, y). The products
+    ``y @ a`` and ``(2 x' - x) @ a.T`` are GEMMs in full float32 (TF32 is
+    refused); the loop reads nothing back to the host.
+    """
+    require_full_f32("pdhg_box_lp_shared")
+    abs_a = a.abs()
+    # tensor numerators: ``scalar / tensor`` is reciprocal-times in torch
+    num = torch.full((), safety, dtype=torch.float32, device=a.device)
+    tau = num / abs_a.sum(dim=0).clamp_min(1.0)                 # (n,)
+    row_sum = abs_a.sum(dim=1)                                  # (R,)
+    sigma = torch.where(row_sum > 0, num / row_sum.clamp_min(1e-6), 0.0)
+    a_t = a.t()
+    x, y = x0, y0
+    for _ in range(iters):
+        x_new = (x - tau * (c + y @ a)).clamp(0.0, 1.0)
+        y = (y + sigma * ((2.0 * x_new - x) @ a_t - b)).clamp_min(0.0)
+        x = x_new
+    return x, y
