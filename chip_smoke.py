@@ -121,9 +121,26 @@ printing one line before the next starts:
 13. the apps: ``qpadmm_grid`` over 3 x 3 cells around (1.2, 0.55) at 256
     trials, each cell's FER equal to a ``QPADMMDecoder`` run at that cell
     on the same LLRs; ``validate`` for QP-ADMM at -3 dB with
-    ``max_trials`` 2,048: verdict PASS.
+    ``max_trials`` 2,048: verdict PASS;
+14. the matrix optimizer (``apps.optimize_h.optimize``) at the reference's
+    width (8 x 14 blocks of 20, 160 x 280), resumed from a copy of the JAX
+    package's ``data/optimize_state.json`` (8 chains, generation 26,208,
+    best FER 0.362) under ``build/`` for two rounds of 8 proposals: screens
+    of 256 trials at 600 iterations, full evaluations of 1,000 trials at
+    1,000 iterations, alpha 1.95, mu 0.5, -3 dB, the final evaluation cut
+    to 2,000 trials. Prints the seconds of each generation, of the screen,
+    full and final evaluations, the host's seconds per generation in
+    ``gf2_nullspace``, ``ADMMStructure.from_h`` and the codeword draw, and
+    ms and dispatches per iteration of the population decode at 2,048
+    lanes. Gates: (a) the population decode of the 8 chain incumbents at
+    256 trials equals 8 single-structure ``decode_qp_admm`` calls on the
+    card lane by lane (bits, success, iterations); (b) 64 of those lanes
+    equal the CPU's (``max_iter`` 1,000); (c) the final FER is recomputed
+    exactly by a ``QPADMMDecoder`` of the best matrix on the same codewords
+    and LLRs; (d) the state file is strict JSON that round-trips, at
+    generation 26,224, and its FER is not above the resumed one.
 
-Phases 10-13 reset every kernel's launch count before their path and print
+Phases 10-14 reset every kernel's launch count before their path and print
 the counts after it (only phase 12 runs a hand-written kernel, BP's).
 Each phase prints its seconds. Then the script prints the kernels' JSON
 line, the card's ``name, power.limit`` line and, last,
@@ -204,6 +221,13 @@ LP_X_TOL = 1e-4     # |x card - x CPU| after 2000 steps (GEMM sum order)
 LP_MARGIN = 1e-3    # lanes this far from 0.5 and int_tol decide alike
 MULTI_SNRS = (-4.0, -3.0, -2.0)
 GRID_TRIALS = 256
+# phase 14: the optimizer resumed from the JAX package's state for two
+# rounds; its final evaluation cut from 10,000 trials to 2,000
+OPT_STATE = "data/optimize_state.json"
+OPT_ROUNDS = 2
+OPT_FINAL_TRIALS = 2000
+OPT_CPU_LANES = 8       # per candidate: 64 lanes on the card and the CPU
+OPT_CHUNK = 64          # iterations of the timed population decode
 
 
 def _time_ms(fn, repeats: int = REPEATS) -> float:
@@ -1825,6 +1849,225 @@ def phase_apps():
         raise AssertionError(f"validate: {r}")
 
 
+def _refuse_constant(token):
+    raise ValueError(f"the state file holds the non-JSON token {token}")
+
+
+class _OptimizerRun:
+    """Records the evaluator of an ``optimize`` run and the seconds of each
+    of its evaluations (each ends with a host read, so the wall time
+    includes the card's work), and prints the run's log lines. Per
+    generation it keeps the seconds since the one before (the first from
+    the line that precedes the loop) and the host's seconds in the
+    evaluator's three per-candidate steps in that time."""
+
+    def __init__(self):
+        self.calls, self.gens = [], []
+        self.ev, self._host0, self._t0 = None, None, None
+
+    def evaluator(self, base):
+        run = self
+
+        class Timed(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                run.ev = self
+
+            def evaluate(self, candidates, seed, trials, trial_batch=512,
+                         max_iter=None):
+                t0 = time.perf_counter()
+                out = super().evaluate(candidates, seed, trials,
+                                       trial_batch, max_iter)
+                run.calls.append((len(candidates), trials, max_iter,
+                                  time.perf_counter() - t0))
+                return out
+
+        return Timed
+
+    def _host(self):
+        return {k: t.total for k, t in self.ev.host_s.items()}
+
+    def log(self, *args, **kwargs):
+        line = " ".join(str(a) for a in args)
+        print(f"[14 optimizer] {line.strip()}", flush=True)
+        if line.startswith(("initial chain screen FERs", "\tgeneration")):
+            now, t = self._host(), time.perf_counter()
+            if self._t0 is not None:
+                self.gens.append((t - self._t0, {k: now[k] - self._host0[k]
+                                                 for k in now}))
+            self._host0, self._t0 = now, t
+
+
+def phase_optimizer():
+    import shutil
+    import numpy as np
+    import torch
+    from ldpc_tpu_torch.apps import optimize_h
+    from ldpc_tpu_torch.channel.awgn import (gen_random_codewords,
+                                             noise_scales, transmit)
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.qc import QCMatrix
+    from ldpc_tpu_torch.config import OptimizeConfig
+    from ldpc_tpu_torch.decoders.admm import (ADMMStructure, QPADMMDecoder,
+                                              decode_qp_admm,
+                                              decode_qp_admm_population)
+
+    dev = torch.device("cuda")
+    os.makedirs("build", exist_ok=True)
+    state = "build/chip_smoke_optimize_state.json"
+    shutil.copy(OPT_STATE, state)
+    with open(state) as f:
+        before = json.load(f)
+    # the defaults are the reference's run: 8 x 14 blocks of 20, population
+    # 8, 1,000 trials at 1,000 iterations, screens of 256 trials at 600,
+    # alpha 1.95, mu 0.5, -3 dB
+    cfg = OptimizeConfig(generations=before["generation"] + OPT_ROUNDS * 8,
+                         final_trials=OPT_FINAL_TRIALS,
+                         save_path="build/chip_smoke_optimalH_torch.txt",
+                         state_path=state)
+    run = _OptimizerRun()
+    base = optimize_h.PopulationEvaluator
+    optimize_h.PopulationEvaluator = run.evaluator(base)
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    try:
+        t0 = time.perf_counter()
+        best_qc, final = optimize_h.optimize(cfg, log=run.log, device=dev)
+        secs = time.perf_counter() - t0
+    finally:
+        optimize_h.PopulationEvaluator = base
+    _path_counts("14 optimizer", _agc_counts(counters=ALL_COUNTERS))
+
+    def kind(call):
+        if call[2] == cfg.screen_iters:
+            return "screen"
+        return "final" if call[1] == cfg.final_trials else "full"
+
+    split = {}
+    for call in run.calls:
+        n, s_ = split.get(kind(call), (0, 0.0))
+        split[kind(call)] = (n + 1, s_ + call[3])
+    gen_s = [g[0] for g in run.gens]
+    host = {k: sum(g[1][k] for g in run.gens) / len(run.gens)
+            for k in run.gens[0][1]}
+    share = sum(host.values()) / (sum(gen_s) / len(gen_s))
+    print(f"[14 optimizer] resumed at generation {before['generation']} "
+          f"for {OPT_ROUNDS} rounds of {cfg.population} proposals: "
+          f"{secs} s in all; seconds per generation {gen_s}; evaluations "
+          f"(calls, seconds) by kind {split}; host seconds per generation "
+          f"{host}, {share} of a generation", flush=True)
+
+    # (d) the state file: strict JSON that round-trips, the run's proposal
+    # count, the FER never above the resumed one
+    with open(state) as f:
+        text = f.read()
+    after = json.loads(text, parse_constant=_refuse_constant)
+    trip = json.loads(json.dumps(after)) == after
+    print(f"[14 optimizer] (d) state: strict JSON round trip {trip}, "
+          f"generation {after['generation']}, FER {after['fer']} (resumed "
+          f"{before['fer']}), final FER ({cfg.final_trials} trials) "
+          f"{final:.5f}", flush=True)
+    if not (trip and after["generation"] == cfg.generations
+            and after["fer"] is not None and after["fer"] <= before["fer"]):
+        raise AssertionError(f"state file: {after['generation']}, "
+                             f"{after['fer']}")
+
+    # (c) the final FER, recomputed by a single decoder of the best matrix
+    # on the same codewords (from the seed) and LLRs (noise from seed + 1)
+    def channel(h, trials):
+        cw = gen_random_codewords(gf2_nullspace(h)[0], trials,
+                                  torch.Generator().manual_seed(cfg.seed),
+                                  dev)
+        idx = torch.arange(trials, dtype=torch.int64, device=dev)
+        return cw, noise_scales(cfg.snr)[1] * transmit(cw, cfg.snr,
+                                                      cfg.seed + 1, idx)
+
+    def fer_of(h, trials):
+        cw, llr = channel(h, trials)
+        res = QPADMMDecoder(h, alpha=cfg.admm_alpha, mu=cfg.admm_mu,
+                            max_iter=cfg.admm_max_iter,
+                            device=dev).decode_batch(llr)
+        return 1.0 - int((res.success & (res.bits == cw).all(-1)).sum()
+                         ) / trials
+
+    h_best = best_qc.to_dense()
+    again = fer_of(h_best, cfg.final_trials)
+    checks = [("final", final, again)]
+    if after["fer"] != before["fer"]:   # a new best from this run's evals
+        checks.append(("best", after["fer"], fer_of(h_best, cfg.trials)))
+    print(f"[14 optimizer] (c) (reported, recomputed by a QPADMMDecoder of "
+          f"the best matrix): {checks}", flush=True)
+    if any(a != b for _, a, b in checks):
+        raise AssertionError(f"FER not recomputed: {checks}")
+
+    # (a) the chain incumbents' population decode against single decodes
+    incumbents = [QCMatrix(cfg.block_size, np.array(c["present"], bool),
+                           np.array(c["shifts"], np.int64)).to_dense()
+                  for c in after["chains"]]
+    incumbents = [h for h in incumbents if gf2_nullspace(h)[1]]
+    caps = optimize_h._caps_for(incumbents)
+    structs = [ADMMStructure.from_h(h, **caps) for h in incumbents]
+    tables = {k: torch.from_numpy(np.stack([getattr(s, k) for s in structs]))
+              for k in optimize_h.TABLES}
+    tables_dev = {k: t.to(dev) for k, t in tables.items()}
+    cws, llrs = zip(*(channel(h, cfg.screen_trials) for h in incumbents))
+    llrs = torch.stack(llrs)                        # (P, 256, n)
+    n = h_best.shape[1]
+    args = (cfg.admm_alpha, cfg.admm_mu, cfg.admm_max_iter, 1e-5)
+    pop = decode_qp_admm_population(tables_dev, n, llrs, *args)
+    differ = []
+    for p in range(len(incumbents)):
+        one = decode_qp_admm({k: t[p] for k, t in tables_dev.items()}, n,
+                             llrs[p], *args)
+        for key in ("bits", "success", "iterations"):
+            if not torch.equal(getattr(one, key), getattr(pop, key)[p]):
+                differ.append((p, key))
+    good = pop.success & (pop.bits == torch.stack(cws)).all(-1)
+    fers = (1.0 - good.float().mean(dim=1)).tolist()
+    print(f"[14 optimizer] (a) {len(incumbents)} chain incumbents x "
+          f"{cfg.screen_trials} trials, caps {caps}: population decode "
+          f"against {len(incumbents)} single decode_qp_admm calls, "
+          f"(candidate, output) pairs differing: {differ}; FER per "
+          f"incumbent {[round(f, 4) for f in fers]}", flush=True)
+    if differ:
+        raise AssertionError(f"population decode differs: {differ}")
+
+    # (b) OPT_CPU_LANES lanes of each incumbent on the CPU
+    t0 = time.perf_counter()
+    cpu = decode_qp_admm_population(tables, n,
+                                    llrs[:, :OPT_CPU_LANES].cpu(), *args)
+    cpu_s = time.perf_counter() - t0
+    same = {key: torch.equal(getattr(pop, key)[:, :OPT_CPU_LANES].cpu(),
+                             getattr(cpu, key))
+            for key in ("bits", "success", "iterations")}
+    print(f"[14 optimizer] (b) {len(incumbents) * OPT_CPU_LANES} lanes on "
+          f"the card and on the CPU at max_iter {cfg.admm_max_iter}: equal "
+          f"{same}; CPU {cpu_s:.2f} s", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"population decode card vs CPU: {same}")
+
+    # one iteration of the population decode at the incumbents' 2,048
+    # lanes: time and dispatches per iteration over an OPT_CHUNK-iteration
+    # decode (its setup included), no lane finishing that early at -3 dB
+    def chunk():
+        return decode_qp_admm_population(tables_dev, n, llrs,
+                                         cfg.admm_alpha, cfg.admm_mu,
+                                         OPT_CHUNK, 1e-5)
+
+    chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chunk()
+    torch.cuda.synchronize()
+    ms_it = (time.perf_counter() - t0) * 1e3 / OPT_CHUNK
+    ops = _launches(chunk) / OPT_CHUNK
+    print(f"[14 optimizer] population decode at {llrs.shape[0]} x "
+          f"{llrs.shape[1]} = {llrs.shape[0] * llrs.shape[1]} lanes, "
+          f"{OPT_CHUNK} iterations: {ms_it:.4f} ms per iteration by the "
+          f"host clock, {ops:.1f} dispatches per iteration (non-view ATen "
+          f"operations); lanes done after {OPT_CHUNK} iterations: "
+          f"{int((out.iterations < OPT_CHUNK).sum())}", flush=True)
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -1857,6 +2100,7 @@ def main() -> int:
     _timed("11 full lp", phase_full_lp)
     _timed("12 multi-snr", phase_multi_snr)
     _timed("13 apps", phase_apps)
+    _timed("14 optimizer", phase_optimizer)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

@@ -3,8 +3,9 @@
 The reference's knobs are compile-time ``#define``s and top-of-file constants
 (``main.cpp:1-2,23-40``). Here every knob is a dataclass field with a
 command-line flag; the fields and defaults are the JAX package's, so a
-command line means the same in both. ``OptimizeConfig`` waits for its app
-(ROADMAP item 13).
+command line means the same in both. ``OptimizeConfig``'s two output paths
+are the port's own, so that a run with the defaults never overwrites the
+JAX package's optimizer results.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import dataclasses
 from dataclasses import dataclass, field
 
 __all__ = ["DEFAULT_SNRS", "DecoderConfig", "GridSearchConfig",
-           "SweepConfig", "add_dataclass_args", "apply_args"]
+           "OptimizeConfig", "SweepConfig", "add_dataclass_args",
+           "apply_args"]
 
 DEFAULT_SNRS = (-5.0, -4.5, -4.0, -3.5, -3.0, -2.5, -2.0, -1.5, -1.0, -0.5, 0.0)
 
@@ -79,6 +81,44 @@ class GridSearchConfig:
     seed: int = 239
     batch_cells: int = 16               # (alpha, mu) cells per decode call
     grid_out: str = ""                  # optional CSV: one FER row per cell
+
+
+@dataclass
+class OptimizeConfig:
+    """The matrix optimizer (``optimize_H.cpp:12-14,124-136``), with a
+    population of descent chains."""
+
+    block_size: int = 20
+    block_rows: int = 8
+    block_cols: int = 14
+    trials: int = 1000
+    final_trials: int = 10000
+    snr: float = -3.0
+    admm_alpha: float = 1.95             # optimize_H.cpp:14 (not OPTIMAL)
+    admm_mu: float = 0.5
+    admm_max_iter: int = 1000
+    generations: int = 10000             # proposals (optimize_H.cpp:133)
+    population: int = 8                  # parallel descent chains (one
+    # proposal per chain per generation; the reference is population=1)
+    screen_trials: int = 256             # shared-noise screen size
+    screen_iters: int = 600              # ADMM iteration cap for screens
+    # only; accepts that can touch the saved matrix are always confirmed at
+    # the full (admm_max_iter, trials) budget
+    screen_margin: float = 0.03          # ~2 paired sigma at 256 trials; in
+    # polish mode a proposal within this of the incumbent's screen FER
+    # earns a full evaluation
+    polish_margin: float = 0.04          # chains whose screen FER is within
+    # this of the global best's switch from screen-greedy descent to
+    # full-budget confirmed accepts (the reference's accept rule)
+    kick_after: int = 60                 # consecutive rejections before a
+    # chain widens its proposals to multi-block mutations
+    kick_blocks: int = 3                 # blocks mutated per kicked proposal
+    reseed_after: int = 200              # consecutive rejections before a
+    # chain restarts (alternating global-best-perturbed / fresh random)
+    seed: int = 239
+    init_matrix: str | None = None       # warm start path; None -> random
+    save_path: str = "data/optimalH_torch.txt"
+    state_path: str = "data/optimize_state_torch.json"
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cfg) -> None:
