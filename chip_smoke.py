@@ -139,9 +139,28 @@ printing one line before the next starts:
     exactly by a ``QPADMMDecoder`` of the best matrix on the same codewords
     and LLRs; (d) the state file is strict JSON that round-trips, at
     generation 26,224, and its FER is not above the resumed one.
+15. worlds of processes over ``torch.distributed``, each started by
+    ``torchrun`` as ``chip_smoke.py --world DIR BACKEND`` (one JSON file of
+    results per rank under ``build/chip_smoke_worlds/``): (a) a world of 1
+    over NCCL runs ``apps.scaling_bench`` at its defaults (optimalH, 65,536
+    trials, 4,096 lanes, BP-50, -3 dB; ``bp_decode`` launches > 0) and the
+    same trials unsharded in that process (all eight counters equal), then
+    the unsharded references of (b) and (c); (b) a world of 2 on the one
+    card over gloo: BP sharded at the same configuration, ALP at 512 trials
+    in batches of 256 (one per rank; ``pdhg_chunk`` launches > 0) and
+    QP-ADMM streamed at 256 trials on 64 lanes a rank, each rank's summed
+    counters equal to the unsharded run's in all eight fields, and
+    ``scaling_bench``'s line for the world (its efficiency on one card is
+    a functional figure, not a scaling claim); (c) the optimizer at the
+    reference's width, population 2 for 2 generations at a small budget,
+    over the world of 2 against the world of 1: the same state file and
+    log lines, rank 1 silent. Then two ranks on the card over NCCL must
+    fail ("Duplicate GPU detected"). A world that fails or has not ended
+    after 300 s (killed with its process group) fails the phase.
 
-Phases 10-14 reset every kernel's launch count before their path and print
-the counts after it (only phase 12 runs a hand-written kernel, BP's).
+Phases 10-15 reset every kernel's launch count before their path and print
+the counts after it (phase 12 runs BP's kernel, phase 15 BP's and the PDHG
+kernel in every rank).
 Each phase prints its seconds. Then the script prints the kernels' JSON
 line, the card's ``name, power.limit`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -228,6 +247,17 @@ OPT_ROUNDS = 2
 OPT_FINAL_TRIALS = 2000
 OPT_CPU_LANES = 8       # per candidate: 64 lanes on the card and the CPU
 OPT_CHUNK = 64          # iterations of the timed population decode
+# phase 15: worlds of processes started by torchrun
+WORLD_DIR = "build/chip_smoke_worlds"
+WORLD_TIMEOUT_S = 300   # a world that has not ended by then is killed
+WORLD_ALP_TRIALS = 512  # two ALP batches of 256: one per rank of 2
+WORLD_ADMM_TRIALS = 256
+WORLD_ADMM_LANES = 128  # streamed: 64 lanes per rank of 2
+WORLD_ADMM_ITERS = 2000  # QP-ADMM's cap in the check (the failing trials'
+# run to it sets the stream's tail)
+WORLD_OPT = dict(trials=128, final_trials=256, screen_trials=64,
+                 screen_iters=200, admm_max_iter=300, generations=4,
+                 population=2)  # 2 generations of 2 proposals, -3 dB
 
 
 def _time_ms(fn, repeats: int = REPEATS) -> float:
@@ -2068,6 +2098,222 @@ def phase_optimizer():
           f"{int((out.iterations < OPT_CHUNK).sum())}", flush=True)
 
 
+def _launch(cmd, timeout):
+    """Runs ``cmd`` in its own process group; kills the whole group if it
+    has not ended after ``timeout`` seconds. Returns (exit code or None
+    when killed, stdout, stderr, seconds)."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        rc = None
+    return rc, out, err, time.perf_counter() - t0
+
+
+def _torchrun(nproc, *args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}", *args]
+
+
+def _world(nproc, backend):
+    """Starts ``chip_smoke.py --world`` as a world of ``nproc`` ranks over
+    ``backend``; returns each rank's results."""
+    rc, out, err, secs = _launch(
+        _torchrun(nproc, os.path.abspath(__file__), "--world", WORLD_DIR,
+                  backend), WORLD_TIMEOUT_S)
+    print(f"[15 worlds] world of {nproc} over {backend}: exit {rc}, "
+          f"{secs:.2f} s", flush=True)
+    if rc != 0:
+        print(err[-6000:], file=sys.stderr)
+        raise AssertionError(f"the world of {nproc} over {backend} failed "
+                             f"(exit {rc})")
+    ranks = []
+    for rank in range(nproc):
+        with open(f"{WORLD_DIR}/w{nproc}_r{rank}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def world_rank(out_dir, backend):
+    """One rank of a phase-15 world (started by torchrun): every check's
+    results into ``out_dir/w{world}_r{rank}.json``. A world of 1 runs the
+    sharded ``scaling_bench`` and the unsharded references, a world of 2
+    the sharded runs; each path's kernel launches are counted from 0."""
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.apps import optimize_h, scaling_bench
+    from ldpc_tpu_torch.channel.awgn import gen_random_codewords
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.config import DecoderConfig, OptimizeConfig
+    from ldpc_tpu_torch.decoders import make_decoder
+    from ldpc_tpu_torch.decoders.bp import BPDecoder
+    from ldpc_tpu_torch.harness.experiment import (COUNTERS, run_experiment,
+                                                   run_streaming_experiment)
+    from ldpc_tpu_torch.parallel.distributed import (initialize_distributed,
+                                                     process_count,
+                                                     process_index, shutdown)
+    from ldpc_tpu_torch.parallel.mesh import make_trial_mesh
+
+    initialize_distributed(backend=backend)
+    world, rank = process_count(), process_index()
+    if world != int(os.environ["WORLD_SIZE"]):
+        raise AssertionError(f"a world of {os.environ['WORLD_SIZE']} runs "
+                             f"as {world}")
+    sh = make_trial_mesh()
+    dev = sh.device
+    split = sh if world > 1 else None
+    out = {"rank": rank, "world": world, "backend": sh.backend,
+           "device": str(dev), "card": torch.cuda.get_device_name(dev)}
+
+    def counters(res):
+        return [getattr(res, k) for k in COUNTERS]
+
+    def path(name, fn):
+        _agc_counts(reset=True, counters=ALL_COUNTERS)
+        t0 = time.perf_counter()
+        res = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_launches"] = _agc_counts(counters=ALL_COUNTERS)
+        return res
+
+    try:
+        out["scaling"] = path("scaling", lambda: scaling_bench.main(
+            ["--backend", backend, "--matrix", str(bench.MATRIX)]))
+        h = read_pcm(str(bench.MATRIX))
+        g, _ = gf2_nullspace(h)
+        cw = gen_random_codewords(
+            g, 65536, torch.Generator().manual_seed(scaling_bench.SEED), dev)
+        seed = scaling_bench.SEED + 1
+        res = path("bp", lambda: run_experiment(
+            BPDecoder(h, max_iter=50, device=dev), h, cw, -3.0, seed, 4096,
+            device=dev, sharding=split))
+        out["bp"], out["bp_cws"] = counters(res), res.throughput
+        res = path("alp", lambda: run_experiment(
+            make_decoder("alp", h, device=dev), h, cw[:WORLD_ALP_TRIALS],
+            -3.0, seed, 256, device=dev, sharding=split))
+        out["alp"], out["alp_cws"] = counters(res), res.throughput
+        res = path("admm", lambda: run_streaming_experiment(
+            make_decoder("qp-admm", h,
+                         DecoderConfig(admm_max_iter=WORLD_ADMM_ITERS),
+                         device=dev), h,
+            cw[:WORLD_ADMM_TRIALS], -3.0, seed, WORLD_ADMM_LANES,
+            device=dev, sharding=split))
+        out["admm"], out["admm_cws"] = counters(res), res.throughput
+        lines = []
+
+        def log(*args, **kwargs):
+            if "file" not in kwargs:        # stdout lines, seconds masked
+                lines.append(re.sub(r"\(\d+\.\d+s,", "(<s>,",
+                                    " ".join(str(a) for a in args)))
+
+        cfg = OptimizeConfig(
+            **WORLD_OPT, save_path=f"{out_dir}/opt_w{world}_r{rank}.txt",
+            state_path=f"{out_dir}/opt_w{world}_r{rank}.json")
+        _, final = path("opt", lambda: optimize_h.optimize(cfg, log=log,
+                                                           device=dev))
+        out["opt_lines"], out["opt_final"] = lines, final
+        if os.path.exists(cfg.state_path):
+            with open(cfg.state_path) as f:
+                out["opt_state"] = f.read()
+    finally:
+        with open(f"{out_dir}/w{world}_r{rank}.json", "w") as f:
+            json.dump(out, f)
+        shutdown()
+    return 0
+
+
+def phase_worlds():
+    """Phase 15: worlds of processes over torch.distributed."""
+    import shutil
+    import torch
+    torch.cuda.empty_cache()          # the worlds' processes share the card
+    shutil.rmtree(WORLD_DIR, ignore_errors=True)
+    os.makedirs(WORLD_DIR)
+
+    # (a) a world of 1 over NCCL: scaling_bench at its defaults and the
+    # unsharded references of (b) and (c)
+    (one,) = _world(1, "nccl")
+    sc = one["scaling"]
+    print(f"[15 worlds] (a) scaling_bench, world of 1 over "
+          f"{sc['backend']} on {one['card']}: {json.dumps(sc)}", flush=True)
+    print(f"[15 worlds] (a) the same 65,536 trials unsharded in that "
+          f"process: {one['bp_cws']:.1f} cw/s, counters {one['bp']}; "
+          f"references: ALP {WORLD_ALP_TRIALS} trials {one['alp']} "
+          f"({one['alp_cws']:.1f} cw/s), QP-ADMM {WORLD_ADMM_TRIALS} "
+          f"trials streamed on {WORLD_ADMM_LANES} lanes at max_iter "
+          f"{WORLD_ADMM_ITERS} {one['admm']} "
+          f"({one['admm_cws']:.1f} cw/s); seconds scaling "
+          f"{one['scaling_s']:.2f}, optimizer {one['opt_s']:.2f}", flush=True)
+    if sc["backend"] != "nccl" or sc["layout"] != "kernel":
+        raise AssertionError(f"world of 1: {sc}")
+    _path_counts("15 worlds", one["scaling_launches"], need=("bp_decode",))
+    if sc["bp_decode_launches"][0] <= 0:
+        raise AssertionError("scaling_bench did not launch bp_decode")
+    if [sc["counters_1dev"][k] for k in sc["counters_1dev"]] != one["bp"]:
+        raise AssertionError(f"world of 1 {sc['counters_1dev']} against "
+                             f"unsharded {one['bp']}")
+
+    # (b), (c) a world of 2 on the one card over gloo
+    two = _world(2, "gloo")
+    sc2 = two[0]["scaling"]
+    print(f"[15 worlds] (b) scaling_bench, world of 2 over gloo on one card "
+          f"(a functional check: two ranks share one card, so its "
+          f"efficiency is no scaling figure): {json.dumps(sc2)}", flush=True)
+    for r in two:
+        bp_n = r["bp_launches"]["bp_decode"]
+        alp_n = r["alp_launches"]["pdhg_chunk"]
+        print(f"[15 worlds] (b) rank {r['rank']} on {r['device']}: BP "
+              f"{r['bp']} ({r['bp_cws']:.1f} cw/s, {bp_n} bp_decode "
+              f"launches), ALP {r['alp']} ({r['alp_cws']:.1f} cw/s, "
+              f"{alp_n} pdhg_chunk launches), QP-ADMM {r['admm']} "
+              f"({r['admm_cws']:.1f} cw/s)", flush=True)
+        if bp_n <= 0 or alp_n <= 0:
+            raise AssertionError(f"rank {r['rank']} launched bp_decode "
+                                 f"{bp_n}, pdhg_chunk {alp_n} times")
+        for key in ("bp", "alp", "admm"):
+            if r[key] != one[key]:
+                raise AssertionError(f"rank {r['rank']} {key} {r[key]} "
+                                     f"against unsharded {one[key]}")
+        if r["backend"] != "gloo" or min(r["scaling"][
+                "bp_decode_launches"]) <= 0:
+            raise AssertionError(f"rank {r['rank']}: {r['scaling']}")
+    if sc2["counters_ndev"] != sc["counters_1dev"]:
+        raise AssertionError(f"world of 2 {sc2['counters_ndev']}")
+    same_state = two[0].get("opt_state") == one.get("opt_state") is not None
+    same_log = two[0]["opt_lines"] == one["opt_lines"]
+    silent = two[1]["opt_lines"] == [] and "opt_state" not in two[1]
+    print(f"[15 worlds] (c) optimizer, population 2 over the world of 2 "
+          f"against the world of 1 ({WORLD_OPT}): state equal {same_state}, "
+          f"log lines equal {same_log} ({len(one['opt_lines'])} lines), "
+          f"rank 1 silent {silent}, final FER {two[0]['opt_final']} "
+          f"(world of 1 {one['opt_final']}), seconds {two[0]['opt_s']:.2f} "
+          f"({one['opt_s']:.2f})", flush=True)
+    for line in one["opt_lines"]:
+        print(f"[15 worlds] (c) {line.strip()}", flush=True)
+    if not (same_state and same_log and silent):
+        raise AssertionError("the sharded optimizer differs from world 1")
+
+    # NCCL refuses two ranks on one card: that world must fail, not run
+    rc, _, err, secs = _launch(
+        _torchrun(2, "-m", "ldpc_tpu_torch.apps.scaling_bench", "--trials",
+                  "8192", "--batch-per-device", "1024", "--matrix",
+                  os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "data", "optimalH.txt")), 120)
+    print(f"[15 worlds] two ranks on one card over NCCL: exit {rc} after "
+          f"{secs:.2f} s; 'Duplicate GPU' in its errors: "
+          f"{'Duplicate GPU' in err}", flush=True)
+    if rc in (0, None):
+        raise AssertionError("a NCCL world of 2 on one card did not fail")
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -2101,6 +2347,7 @@ def main() -> int:
     _timed("12 multi-snr", phase_multi_snr)
     _timed("13 apps", phase_apps)
     _timed("14 optimizer", phase_optimizer)
+    _timed("15 worlds", phase_worlds)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -2189,4 +2436,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world"]:      # a rank of phase 15's worlds
+        sys.exit(world_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -31,6 +31,13 @@ Two levers beyond the population decode:
   decides acceptance (still strictly better on the reference's 1000-trial
   budget, ``optimize_H.cpp:94-101``).
 
+In a world of several processes (``python -m torch.distributed.run
+--nproc-per-node N -m ldpc_tpu_torch.apps.optimize_h ...``) whose size
+divides the population, each rank builds and decodes its share of every
+generation's candidates and the correct counts are summed over the ranks;
+every rank runs the same chains from the same seed, and rank 0 alone logs
+and writes the matrix and the state.
+
 Run:  python -m ldpc_tpu_torch.apps.optimize_h --generations 10000
       --population 8 [--device cuda]
 """
@@ -53,6 +60,9 @@ from ..config import OptimizeConfig, add_dataclass_args, apply_args
 from ..decoders.admm import (ADMMStructure, _structure_caps,
                              decode_qp_admm_population)
 from ..decoders.base import resolve_device
+from ..parallel.distributed import (initialize_distributed, process_count,
+                                    process_index)
+from ..parallel.mesh import make_trial_mesh
 from ..utils.profiling import Timer
 
 __all__ = ["PopulationEvaluator", "main", "optimize"]
@@ -78,20 +88,23 @@ def _caps_for(candidates) -> dict:
 class PopulationEvaluator:
     """FER of P candidate matrices at once, on ``device``.
 
-    ``host_s`` accumulates the host's seconds in the three per-candidate
-    steps (``gf2_nullspace``, ``ADMMStructure.from_h`` and the codeword
-    draw). The JAX package's ``sharding`` (the population axis over a
-    device mesh) waits for multi-device support: only ``None`` is taken.
+    With ``sharding`` (a :class:`..parallel.mesh.TrialSharding`), an
+    evaluation of P candidates with P divisible by the ranks is split: rank
+    ``r`` builds the tables (``gf2_nullspace``, ``from_h``, codewords) of
+    its contiguous P/W candidates only and decodes them, and the (P,)
+    correct counts are summed over the ranks. Other evaluations run whole
+    on every rank, as the JAX package shards only the axes that divide
+    over its devices. ``host_s`` accumulates this rank's host seconds in
+    those three steps.
     """
 
     def __init__(self, cfg: OptimizeConfig, n: int,
                  device: torch.device | str = "cuda", sharding=None):
-        if sharding is not None:
-            raise NotImplementedError("population sharding over several "
-                                      "devices is not supported yet")
         self.cfg = cfg
         self.n = n
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = resolve_device(device if sharding is None
+                                     else sharding.device)
         self.host_s = {"gf2_nullspace": Timer(), "from_h": Timer(),
                        "codewords": Timer()}
 
@@ -100,6 +113,14 @@ class PopulationEvaluator:
         """(best index, best count) over the per-candidate correct counts,
         on the device."""
         return torch.argmax(correct), torch.max(correct)
+
+    def _share(self, p_count: int) -> tuple[int, int]:
+        """This rank's ``[start, stop)`` of the candidates, and whether the
+        evaluation is split."""
+        sh = self.sharding
+        if sh is None or p_count % sh.num_devices:
+            return (0, p_count), False
+        return sh.span(p_count), True
 
     def evaluate(self, candidates: list[np.ndarray], seed: int,
                  trials: int, trial_batch: int = 512,
@@ -111,9 +132,13 @@ class PopulationEvaluator:
         fers = np.ones(p_count)
         live = []
         tables_list, cw_list = [], []
+        # the caps come from the whole population, so a candidate's padded
+        # tables do not depend on how the population is split
         caps = _caps_for(candidates)
         timers = self.host_s
-        for pi, h in enumerate(candidates):
+        (lo, hi), split = self._share(p_count)
+        for pi in range(lo, hi):
+            h = candidates[pi]
             with timers["gf2_nullspace"]:
                 g, ok = gf2_nullspace(h)
             if not ok:
@@ -128,13 +153,37 @@ class PopulationEvaluator:
                 cw_list.append(gen_random_codewords(
                     g, trials, torch.Generator().manual_seed(int(seed)),
                     self.device))
-        if not live:
+        # (2, P): each candidate's correct count and whether it is live,
+        # filled in this rank's slots, summed over the ranks when split
+        found = torch.zeros((2, p_count), dtype=torch.int64,
+                            device=self.device)
+        if live:
+            found[0, live] = self._correct(tables_list, cw_list, hi - lo,
+                                           seed, trials, trial_batch,
+                                           mi)[:len(live)]
+            found[1, live] = 1
+        if split:
+            self.sharding.all_sum(found)
+        if not bool(found[1].any()):
             return fers
+        # the generation's argmin-FER accept, on the device: the first live
+        # candidate with the most correct trials (the JAX package maps a
+        # pad slot's win back to the last live candidate, the same one)
+        best, _ = self._argbest(torch.where(found[1] > 0, found[0], -1))
+        self.last_best = int(best)
+        counts, alive = found.cpu().numpy()
+        fers[alive > 0] = 1.0 - counts[alive > 0] / trials
+        return fers
 
-        # pad the live set to the population size, as the JAX package does
-        # for its one compiled shape: pad slots replicate the last live
-        # structure and their decodes are discarded below
-        while len(tables_list) < max(p_count, 1):
+    def _correct(self, tables_list, cw_list, slots: int, seed: int,
+                 trials: int, trial_batch: int, max_iter: int
+                 ) -> torch.Tensor:
+        """(slots,) correct trials of the live candidates' tables, padded
+        to ``slots`` candidates, as the JAX package pads to its one
+        compiled shape: pad slots replicate the last live structure and
+        their counts are discarded by the caller."""
+        cfg = self.cfg
+        while len(tables_list) < max(slots, 1):
             tables_list.append(tables_list[-1])
             cw_list.append(cw_list[-1])
 
@@ -157,19 +206,11 @@ class PopulationEvaluator:
             llrs = inv_var * transmit(cw, cfg.snr, int(seed) + 1, idx)
             res = decode_qp_admm_population(stacked, self.n, llrs,
                                             cfg.admm_alpha, cfg.admm_mu,
-                                            mi, 1e-5)
+                                            max_iter, 1e-5)
             good = res.success & (res.bits == cw).all(dim=-1)
             out = good.sum(dim=1)
             correct = out if correct is None else correct + out
-        # the generation's argmin-FER accept, on the device; pad slots
-        # replicate the last live candidate, so a pad win maps back to it
-        n_live = len(live)
-        best_slot, _ = self._argbest(correct)
-        self.last_best = live[min(int(best_slot), n_live - 1)]
-        counts = correct.cpu().numpy().astype(np.int64)
-        for li, pi in enumerate(live):
-            fers[pi] = 1.0 - counts[li] / trials
-        return fers
+        return correct
 
 
 class _Chain:
@@ -207,12 +248,26 @@ def optimize(cfg: OptimizeConfig, log=print,
     The saved matrix (``save_path``) and the resumable state always hold
     the global best across chains. Runs on the card unless ``device`` says
     otherwise.
+
+    In a world of W > 1 processes with the population divisible by W, the
+    evaluations are sharded over the ranks (:class:`PopulationEvaluator`);
+    every rank runs the same chains, and rank 0 alone logs and writes the
+    matrix and the state.
     """
     device = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     seed = cfg.seed
     screen = min(cfg.screen_trials, cfg.trials)
-    ev = PopulationEvaluator(cfg, cfg.block_cols * cfg.block_size, device)
+    writer = process_index() == 0
+    if not writer:
+        log = lambda *args, **kwargs: None        # noqa: E731
+    sharding = None
+    if process_count() > 1 and cfg.population % process_count() == 0:
+        sharding = make_trial_mesh(axis_name="pop", device=device)
+        log(f"population sharded over {sharding.num_devices} devices",
+            file=sys.stderr)
+    ev = PopulationEvaluator(cfg, cfg.block_cols * cfg.block_size, device,
+                             sharding)
 
     def eval_full(qcs: list[QCMatrix]) -> np.ndarray:
         return ev.evaluate([q.to_dense() for q in qcs], seed, cfg.trials)
@@ -311,6 +366,8 @@ def optimize(cfg: OptimizeConfig, log=print,
         return v if np.isfinite(v) else None
 
     def checkpoint(gen_done: int):
+        if not writer:
+            return
         save_matrix(best_qc.to_dense(), cfg.save_path)
         if cfg.state_path:
             with open(cfg.state_path, "w") as f:
@@ -426,6 +483,7 @@ def main(argv=None):
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
     apply_args(cfg, args)
+    initialize_distributed(device=args.device)
     return optimize(cfg, device=args.device)
 
 

@@ -1,4 +1,5 @@
-"""Monte-Carlo FER experiment harness on one device (counterpart of
+"""Monte-Carlo FER experiment harness on one device or over the ranks of a
+``torch.distributed`` world (counterpart of
 ``ldpc_tpu/harness/experiment.py``).
 
 A batch step is split in two so that each half can be checked on its own:
@@ -27,6 +28,17 @@ the timed window:
   slowest lane (the reference's work queue, ``experiment.h:86-93``);
 * :func:`run_multi_snr_experiment`: lanes at several SNRs share each batch
   (a per-lane noise scale), counters reduced per SNR.
+
+Each runner takes ``sharding`` (a :class:`..parallel.mesh.TrialSharding`):
+the ranks split whole units of work, each runs its share on its own device
+and the counters are summed over the ranks after the loop. The batched
+runners cut the batch list as they do alone and rank ``r`` decodes batches
+``r, r + W, ...``, so every decode a rank does is one the unsharded run
+does, and the counters equal the unsharded run's for every decoder (ALP's
+and AGC-ALP's lanes are coupled by their solvers' batch-wide stop tests,
+so the lanes of one batch are not split). ``batch_size`` is each rank's
+batch. The clock starts after a barrier and stops after the counters' sum,
+and every rank reports the slowest rank's window.
 """
 from __future__ import annotations
 
@@ -154,11 +166,32 @@ def _result(counters: torch.Tensor, time_sec: float) -> ExperimentResult:
                             time_sec=time_sec)
 
 
+def _start_clock(device: torch.device, sharding) -> float:
+    """Synchronised start: this device idle and, under a sharding, every
+    rank at the barrier."""
+    _sync(device)
+    if sharding is not None:
+        sharding.barrier()
+    return time.perf_counter()
+
+
+def _stop_clock(counters: torch.Tensor, device: torch.device, sharding,
+                t_start: float) -> float:
+    """Sums ``counters`` over the ranks in place and returns the seconds
+    since ``t_start``: the slowest rank's under a sharding."""
+    if sharding is not None:
+        sharding.all_sum(counters)
+    _sync(device)
+    elapsed = time.perf_counter() - t_start
+    return elapsed if sharding is None else sharding.all_max(elapsed)
+
+
 def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
                    batch_size: int = 1024, device: torch.device | str = "cuda",
-                   warmup: bool = True,
-                   streaming: str | bool = "auto") -> ExperimentResult:
-    """FER estimation over all ``codewords`` (T, n) at one SNR on one device.
+                   warmup: bool = True, streaming: str | bool = "auto",
+                   sharding=None) -> ExperimentResult:
+    """FER estimation over all ``codewords`` (T, n) at one SNR on one
+    device, or on each rank of ``sharding`` (which then gives the device).
 
     Trials run in batches of ``batch_size`` with a last, smaller batch for
     the remainder; trial ``t``'s noise is keyed by ``(seed, t)``.
@@ -166,24 +199,27 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
     synchronised end.
 
     ``streaming``: True runs :func:`run_streaming_experiment`; ``"auto"``
-    does so when the decoder has the streaming protocol (``stream_init``),
-    does not set ``prefer_streaming = False`` and there are at least two
-    batches of trials, as the JAX package decides (``experiment.py:328``).
+    does so when there is no sharding, the decoder has the streaming
+    protocol (``stream_init``), does not set ``prefer_streaming = False``
+    and there are at least two batches of trials, as the JAX package
+    decides (``experiment.py:328``).
     """
     if streaming == "auto":
-        streaming = (hasattr(decoder, "stream_init")
+        streaming = (sharding is None and hasattr(decoder, "stream_init")
                      and getattr(decoder, "prefer_streaming", True)
                      and len(codewords) >= 2 * batch_size)
     if streaming:
         return run_streaming_experiment(decoder, h, codewords, snr, seed,
                                         batch_size=batch_size, device=device,
-                                        warmup=warmup)
-    device = resolve_device(device)
+                                        warmup=warmup, sharding=sharding)
+    device = resolve_device(device if sharding is None else sharding.device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
     t_total = cw.shape[0]
     step = make_experiment_step(decoder, h, snr, seed, device)
     bounds = [(s, min(s + batch_size, t_total))
               for s in range(0, t_total, batch_size)]
+    if sharding is not None:
+        bounds = sharding.strided(bounds)
 
     def trials(start, stop):
         return torch.arange(start, stop, dtype=torch.int64, device=device)
@@ -192,18 +228,17 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
         for bsz in sorted({stop - start for start, stop in bounds}):
             step(cw[:bsz], trials(0, bsz))
     acc = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
-    _sync(device)
-    t_start = time.perf_counter()
+    t_start = _start_clock(device, sharding)
     for start, stop in bounds:
         acc += step(cw[start:stop], trials(start, stop))
-    _sync(device)
-    return _result(acc, time.perf_counter() - t_start)
+    return _result(acc, _stop_clock(acc, device, sharding, t_start))
 
 
 def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
                              batch_size: int = 256, fetch_every: int = 4,
                              device: torch.device | str = "cuda",
-                             warmup: bool = True) -> ExperimentResult:
+                             warmup: bool = True,
+                             sharding=None) -> ExperimentResult:
     """FER estimation with converged-lane draining.
 
     The decoder's streaming protocol (``stream_init`` / ``stream_chunk`` /
@@ -223,17 +258,32 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
     ``fetch_every`` chunks, and doubles ``fetch_every`` (up to 128) while
     the polls come back within 0.25 s; chunks after the last lane finished
     do nothing.
+
+    Under ``sharding`` each of the W ranks streams its own contiguous range
+    of trials on ``batch_size // W`` lanes (``batch_size`` must divide by
+    W, as in the JAX package). The counters are exact for decoders whose
+    lanes are independent (BP, QP-ADMM, Full LP); ALP's and AGC-ALP's
+    chunks stop on the largest error over the lanes, which the split
+    regroups, so their lanes may decode otherwise than in one stream.
     """
-    device = resolve_device(device)
+    device = resolve_device(device if sharding is None else sharding.device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
-    t_total = cw.shape[0]
+    first, t_stop = 0, cw.shape[0]
+    bsz = int(batch_size)
+    if sharding is not None:
+        if bsz % sharding.num_devices:
+            raise ValueError(f"batch_size {bsz} does not divide over "
+                             f"{sharding.num_devices} ranks")
+        bsz //= sharding.num_devices
+        first, t_stop = sharding.span(t_stop)
+    t_total = t_stop - first
     h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
     inv_var = noise_scales(snr)[1]
-    bsz = int(batch_size)
 
     def make_lane(idx):
-        """(B,) trial indices -> (llrs, codewords, channel Hamming)."""
-        safe = idx.clamp(0, t_total - 1)
+        """(B,) stream positions -> (llrs, codewords, channel Hamming) of
+        trials ``first + idx``."""
+        safe = idx.clamp(0, max(t_total - 1, 0)) + first
         cwb = cw.index_select(0, safe)
         y = channel_step(cwb, safe, snr, seed)
         return inv_var * y, cwb, _hamming(cwb, y)
@@ -275,11 +325,10 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
 
     if warmup:
         step(start())
-    _sync(device)
-    t_start = time.perf_counter()
+    t_start = _start_clock(device, sharding)
     carry = start()
     t_poll = time.perf_counter()
-    while True:
+    while t_total:
         for _ in range(fetch_every):
             carry, n_active = step(carry)
         if int(n_active) == 0:
@@ -289,8 +338,7 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
             fetch_every *= 2
         t_poll = now
     counters = carry[-1]
-    _sync(device)
-    return _result(counters, time.perf_counter() - t_start)
+    return _result(counters, _stop_clock(counters, device, sharding, t_start))
 
 
 def make_multi_snr_step(decoder: Decoder, h, snrs, seed: int,
@@ -319,13 +367,15 @@ def make_multi_snr_step(decoder: Decoder, h, snrs, seed: int,
 def run_multi_snr_experiment(decoder: Decoder, h, codewords, snrs,
                              seed: int, batch_size: int = 2048,
                              device: torch.device | str = "cuda",
-                             warmup: bool = True) -> list[ExperimentResult]:
+                             warmup: bool = True,
+                             sharding=None) -> list[ExperimentResult]:
     """The whole SNR sweep as one trial stream: every (SNR, trial) pair is a
     lane, interleaved so each batch mixes the SNRs (trial t at SNR s is lane
-    ``t * S + s``), decoded in batches of ``batch_size``. Returns one
+    ``t * S + s``), decoded in batches of ``batch_size`` (under
+    ``sharding``, rank ``r`` decodes batches ``r, r + W, ...``). Returns one
     result per SNR, in ``snrs`` order, each timed with an equal share of the
     elapsed time (as the JAX package apportions it)."""
-    device = resolve_device(device)
+    device = resolve_device(device if sharding is None else sharding.device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
     t_total = cw.shape[0]
     s_count = len(snrs)
@@ -336,6 +386,8 @@ def run_multi_snr_experiment(decoder: Decoder, h, codewords, snrs,
     total = s_count * t_total
     bounds = [(s, min(s + batch_size, total))
               for s in range(0, total, batch_size)]
+    if sharding is not None:
+        bounds = sharding.strided(bounds)
 
     def run_batch(start, stop):
         idx = trial_idx[start:stop]
@@ -346,10 +398,8 @@ def run_multi_snr_experiment(decoder: Decoder, h, codewords, snrs,
             run_batch(0, bsz)
     acc = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
                       device=device)
-    _sync(device)
-    t_start = time.perf_counter()
+    t_start = _start_clock(device, sharding)
     for start, stop in bounds:
         acc += run_batch(start, stop)
-    _sync(device)
-    elapsed = time.perf_counter() - t_start
+    elapsed = _stop_clock(acc, device, sharding, t_start)
     return [_result(acc[:, si], elapsed / s_count) for si in range(s_count)]

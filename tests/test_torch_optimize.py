@@ -44,6 +44,7 @@ from ldpc_tpu_torch.config import OptimizeConfig
 from ldpc_tpu_torch.decoders.admm import (ADMMStructure, QPADMMDecoder,
                                           decode_qp_admm,
                                           decode_qp_admm_population)
+from ldpc_tpu_torch.parallel.mesh import TrialSharding
 
 try:  # the card's host has no JAX; only the gpu case runs there
     import jax
@@ -235,8 +236,9 @@ def test_evaluator_scores_like_a_single_decoder():
         assert fers[i] == 1.0 - correct / cfg.trials, i
     assert ev.last_best == (0 if fers[0] <= fers[2] else 2)
     assert all(t.total > 0 for t in ev.host_s.values())
-    # live = [0, 2], padded to three slots [0, 2, 2]: a win of the pad
-    # slot maps back to the last live candidate
+    # the accept runs over the candidates with the singular one masked: a
+    # win of the last index is the last live candidate (JAX pads the live
+    # set [0, 2] to slots [0, 2, 2] and maps a pad slot's win back to it)
     ev._argbest = lambda c: (torch.tensor(len(c) - 1), c.max())
     ev.evaluate([a, singular, b], 5, cfg.trials)
     assert ev.last_best == 2
@@ -463,9 +465,27 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
         optimize_h.optimize(cfg, log=lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         optimize_h.PopulationEvaluator(cfg, 16)
-    with pytest.raises(NotImplementedError):
-        optimize_h.PopulationEvaluator(cfg, 16, device=CPU, sharding=object())
     assert not os.path.exists(cfg.state_path)
+
+
+@pytest.mark.parametrize("world", [1, 3])
+def test_evaluator_takes_a_sharding(world):
+    """A world-1 sharding gives the unsharded FERs and best candidate; so
+    does a population the world does not divide (3 candidates over 3 ranks
+    would split; 2 do not), which runs whole on every rank with no
+    collective."""
+    cfg = _tiny_cfg()
+    a, singular, b = _tiny_candidates()
+    plain = optimize_h.PopulationEvaluator(cfg, a.shape[1], device=CPU)
+    want = plain.evaluate([a, b], 5, cfg.trials, trial_batch=10)
+    sh = TrialSharding(0, world, CPU)
+    ev = optimize_h.PopulationEvaluator(cfg, a.shape[1], device=CPU,
+                                        sharding=sh)
+    assert ev._share(2) == ((0, 2), world == 1)
+    assert np.array_equal(ev.evaluate([a, b], 5, cfg.trials, trial_batch=10),
+                          want)
+    assert ev.last_best == plain.last_best
+    assert ev._share(3) == ((0, 1 if world == 3 else 3), True)
 
 
 @pytest.mark.gpu
