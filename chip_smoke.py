@@ -7,7 +7,10 @@ printing one line before the next starts:
 1. device check: exits non-zero when ``torch.cuda.is_available()`` is false;
    prints the card, torch, CUDA and nvcc versions;
 2. kernel build: compiles ``ldpc_tpu_torch/csrc/*.cu`` with nvcc and prints
-   the seconds it took;
+   the seconds it took; then compiles the native host core
+   (``ldpc_tpu_torch/_native/ldpc_host.cpp``) with g++ into
+   ``build/ldpc_tpu_torch/libldpc_host.so`` and prints g++'s version, the
+   seconds and the library's path;
 3. kernel vs its plain PyTorch twin on the card: the fused BP kernel and
    ``ops.bp_ref`` decode the same 8192 optimalH LLRs at -3 and at 0 dB
    (100 iterations). Bound: success flag and iteration count agree on at
@@ -130,7 +133,9 @@ printing one line before the next starts:
     1,000 iterations, alpha 1.95, mu 0.5, -3 dB, the final evaluation cut
     to 2,000 trials. Prints the seconds of each generation, of the screen,
     full and final evaluations, the host's seconds per generation in
-    ``gf2_nullspace``, ``ADMMStructure.from_h`` and the codeword draw, and
+    ``gf2_nullspace``, ``ADMMStructure.from_h`` and the codeword draw and
+    which path built the tables (the native host core, or NumPy under
+    ``LDPC_TPU_NO_NATIVE``), and
     ms and dispatches per iteration of the population decode at 2,048
     lanes. Gates: (a) the population decode of the 8 chain incumbents at
     256 trials equals 8 single-structure ``decode_qp_admm`` calls on the
@@ -157,12 +162,23 @@ printing one line before the next starts:
     log lines, rank 1 silent. Then two ranks on the card over NCCL must
     fail ("Duplicate GPU detected"). A world that fails or has not ended
     after 300 s (killed with its process group) fails the phase.
+16. the native host core on the card's host: ``gf2_nullspace`` and
+    ``ADMMStructure.from_h`` (the core) against their NumPy bodies
+    (``_nullspace_numpy``, ``_from_h_numpy``) on ``data/H.txt``,
+    ``optimalH.txt``, ``H02.txt`` and ``H05.txt`` and on 200 QC mutations
+    of the state file's 8 chain incumbents, drawn as ``optimize_h`` draws
+    them (25 generations; singular ones among them): G and ok equal, and
+    every table equal with no caps and at ``optimize_h._caps_for`` caps
+    (each file alone, each generation's 8 together). Any difference fails
+    the phase. Prints ms per call of both paths. The core is no GPU kernel:
+    its line comes before the kernels' JSON line, not in it.
 
-Phases 10-15 reset every kernel's launch count before their path and print
+Phases 10-16 reset every kernel's launch count before their path and print
 the counts after it (phase 12 runs BP's kernel, phase 15 BP's and the PDHG
-kernel in every rank).
-Each phase prints its seconds. Then the script prints the kernels' JSON
-line, the card's ``name, power.limit`` line and, last,
+kernel in every rank, phase 16 none: it runs on the host).
+Each phase prints its seconds. Then the script prints the host core's JSON
+line, the kernels' JSON line, the card's ``name, power.limit`` line and,
+last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero before that line. Imports nothing of JAX.
 """
@@ -258,6 +274,11 @@ WORLD_ADMM_ITERS = 2000  # QP-ADMM's cap in the check (the failing trials'
 WORLD_OPT = dict(trials=128, final_trials=256, screen_trials=64,
                  screen_iters=200, admm_max_iter=300, generations=4,
                  population=2)  # 2 generations of 2 proposals, -3 dB
+# phase 16: the native host core against NumPy on the card's host
+NATIVE_FILES = ("H", "optimalH", "H02", "H05")
+NATIVE_GENERATIONS = 25  # of the state file's 8 chains: 200 mutations
+NATIVE_SEED = 0
+NATIVE_REPEATS = 5       # calls per file and path; the median is printed
 
 
 def _time_ms(fn, repeats: int = REPEATS) -> float:
@@ -416,6 +437,18 @@ def phase_build():
           flush=True)
     print(f"[2 build] SASS of the kernels: "
           f"{_sass_mix(str(_build.LIB_PATH))}", flush=True)
+
+    from ldpc_tpu_torch import _native
+    gxx = subprocess.run([_native.gxx_path(), "--version"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    _native.build(force=True)
+    if _native.load() is None:
+        raise AssertionError("LDPC_TPU_NO_NATIVE is set: the host core "
+                             "is switched off")
+    print(f"[2 build] host core {_native.LIB_PATH} built by {gxx} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_kernel_vs_ref():
@@ -1932,6 +1965,7 @@ def phase_optimizer():
     import shutil
     import numpy as np
     import torch
+    from ldpc_tpu_torch import _native
     from ldpc_tpu_torch.apps import optimize_h
     from ldpc_tpu_torch.channel.awgn import (gen_random_codewords,
                                              noise_scales, transmit)
@@ -1980,11 +2014,14 @@ def phase_optimizer():
     host = {k: sum(g[1][k] for g in run.gens) / len(run.gens)
             for k in run.gens[0][1]}
     share = sum(host.values()) / (sum(gen_s) / len(gen_s))
+    path = ("NumPy (LDPC_TPU_NO_NATIVE)" if _native.disabled()
+            else f"the native host core ({_native.LIB_PATH.name})")
     print(f"[14 optimizer] resumed at generation {before['generation']} "
           f"for {OPT_ROUNDS} rounds of {cfg.population} proposals: "
           f"{secs} s in all; seconds per generation {gen_s}; evaluations "
           f"(calls, seconds) by kind {split}; host seconds per generation "
-          f"{host}, {share} of a generation", flush=True)
+          f"{host}, {share} of a generation; tables built by {path}",
+          flush=True)
 
     # (d) the state file: strict JSON that round-trips, the run's proposal
     # count, the FER never above the resumed one
@@ -2314,6 +2351,106 @@ def phase_worlds():
         raise AssertionError("a NCCL world of 2 on one card did not fail")
 
 
+def _host_call(fn, *args, repeats=1, **kwargs):
+    """``fn``'s result and the median of ``repeats`` calls' milliseconds
+    by the host clock."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(times)[len(times) // 2]
+
+
+def phase_native():
+    """Phase 16; returns the host core's JSON entry."""
+    import numpy as np
+    from ldpc_tpu_torch import _native
+    from ldpc_tpu_torch.apps import optimize_h
+    from ldpc_tpu_torch.codes import gf2
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.codes.qc import QCMatrix
+    from ldpc_tpu_torch.config import OptimizeConfig
+    from ldpc_tpu_torch.decoders.admm import (TABLES, ADMMStructure,
+                                              _from_h_numpy)
+
+    if _native.load() is None:
+        raise AssertionError("LDPC_TPU_NO_NATIVE is set: phase 16 needs "
+                             "the host core")
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    with open(OPT_STATE) as f:
+        chains = [QCMatrix(OptimizeConfig().block_size,
+                           np.array(c["present"], bool),
+                           np.array(c["shifts"], np.int64))
+                  for c in json.load(f)["chains"]]
+    rng = np.random.default_rng(NATIVE_SEED)
+    groups = [(name, [read_pcm(f"data/{name}.txt")], NATIVE_REPEATS)
+              for name in NATIVE_FILES]
+    groups += [("mutation", [qc.random_mutation(rng).to_dense()
+                             for qc in chains], 1)
+               for _ in range(NATIVE_GENERATIONS)]
+
+    def same_tables(a, b):
+        return ((a.n, a.n_var, a.n_con) == (b.n, b.n_var, b.n_con)
+                and all(getattr(a, k).dtype == getattr(b, k).dtype
+                        and np.array_equal(getattr(a, k), getattr(b, k))
+                        for k in TABLES))
+
+    ms, differ, singular, inputs = {}, [], 0, 0
+    for label, hs, repeats in groups:
+        caps = optimize_h._caps_for(hs)
+        for h in hs:
+            inputs += 1
+            calls = {
+                "gf2_nullspace": (
+                    _host_call(gf2.gf2_nullspace, h, repeats=repeats),
+                    _host_call(gf2._nullspace_numpy, h, repeats=repeats)),
+                "from_h": (
+                    _host_call(ADMMStructure.from_h, h, repeats=repeats),
+                    _host_call(_from_h_numpy, h, repeats=repeats)),
+                "from_h at caps": (
+                    _host_call(ADMMStructure.from_h, h, repeats=repeats,
+                               **caps),
+                    _host_call(_from_h_numpy, h, repeats=repeats, **caps))}
+            for what, ((got, t_got), (want, t_want)) in calls.items():
+                if what == "gf2_nullspace":
+                    same = got[1] == want[1] and (
+                        not got[1] or np.array_equal(got[0], want[0]))
+                    singular += not got[1]
+                else:
+                    same = same_tables(got, want)
+                if not same:
+                    differ.append((label, inputs, what))
+                per = ms.setdefault(label, {}).setdefault(what, ([], []))
+                per[0].append(t_got)
+                per[1].append(t_want)
+    # ms per call: a file's median over NATIVE_REPEATS calls, the mean
+    # over the mutations
+    ms = {label: {what: (float(np.mean(a)), float(np.mean(b)))
+                  for what, (a, b) in per.items()}
+          for label, per in ms.items()}
+    _path_counts("16 native", _agc_counts(counters=ALL_COUNTERS))
+    for label, per in ms.items():
+        print(f"[16 native] {label}: ms per call (native, NumPy): "
+              + "; ".join(f"{what} {a:.4f}, {b:.4f} ({b / a:.1f}x)"
+                          for what, (a, b) in per.items()), flush=True)
+    print(f"[16 native] {inputs} inputs ({len(NATIVE_FILES)} files, "
+          f"{inputs - len(NATIVE_FILES)} QC mutations, {singular} "
+          f"singular): native = NumPy in G and ok and in every table with "
+          f"no caps and at _caps_for caps; (input, call) pairs differing: "
+          f"{differ}", flush=True)
+    if differ or singular == 0:
+        raise AssertionError(f"host core differs from NumPy: {differ}; "
+                             f"singular inputs {singular}")
+    return {"name": "ldpc_host", "route": "c++ (g++, host)",
+            "source": "ldpc_tpu_torch/_native/ldpc_host.cpp",
+            "counterpart": "ldpc_tpu/_native/ldpc_host.cpp",
+            "inputs": inputs, "singular": singular, "differ": len(differ),
+            "ms_native_numpy": {label: {what: [round(a, 4), round(b, 4)]
+                                        for what, (a, b) in per.items()}
+                                for label, per in ms.items()}}
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -2348,6 +2485,7 @@ def main() -> int:
     _timed("13 apps", phase_apps)
     _timed("14 optimizer", phase_optimizer)
     _timed("15 worlds", phase_worlds)
+    host_core = _timed("16 native", phase_native)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -2427,6 +2565,7 @@ def main() -> int:
                 entry["device_ms"] = row["device_ms"]
         kernels.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
+    print(json.dumps({"host_core": host_core}))
     print(json.dumps({"kernels": kernels}))
     print(card_stamp(torch.device("cuda", 0)))
     print(json.dumps({"ok": True, "device": {

@@ -23,4 +23,8 @@ torch ops (the JAX package has no Pallas kernel for either);
 ``csrc/gemv.cu``, ``csrc/normal_build.cu``, ``csrc/chol_diag_inv.cu``) and
 adds Gaussian-elimination cuts (``csrc/gf2_gauss.cu``). The (alpha, mu) grid
 search and the parity sweep are ``apps.qpadmm_grid`` and ``apps.validate``.
+
+Host side: ``codes.gf2.gf2_nullspace`` and ``decoders.admm.ADMMStructure``'s
+``from_h`` run the package's C++ host core (``_native/ldpc_host.cpp``, built
+with g++ at first use), as the JAX package runs its own.
 """

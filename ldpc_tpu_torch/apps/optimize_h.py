@@ -57,7 +57,7 @@ from ..codes.gf2 import gf2_nullspace
 from ..codes.io import read_pcm, save_matrix
 from ..codes.qc import QCMatrix
 from ..config import OptimizeConfig, add_dataclass_args, apply_args
-from ..decoders.admm import (ADMMStructure, _structure_caps,
+from ..decoders.admm import (TABLES, ADMMStructure, _structure_caps,
                              decode_qp_admm_population)
 from ..decoders.base import resolve_device
 from ..parallel.distributed import (initialize_distributed, process_count,
@@ -66,8 +66,6 @@ from ..parallel.mesh import make_trial_mesh
 from ..utils.profiling import Timer
 
 __all__ = ["PopulationEvaluator", "main", "optimize"]
-
-TABLES = ("con_var", "con_coef", "b", "var_con", "var_coef", "e")
 
 
 def _bucket(x: int, q: int) -> int:

@@ -48,6 +48,10 @@ def main(argv=None) -> dict:
     p.add_argument("--snr", type=float, default=-3.0)
     p.add_argument("--batch-per-device", type=int, default=4096)
     p.add_argument("--bp-iters", type=int, default=50)
+    # JAX's BP layout, accepted and unused as the sweep's --bp-layout; the
+    # port reports the layout it ran under "layout"
+    p.add_argument("--layout", default=None,
+                   help="JAX's BP layout; accepted and ignored")
     p.add_argument("--device", default="cuda",
                    help="torch device type to run on (default: cuda)")
     p.add_argument("--backend", default=None,

@@ -45,12 +45,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _native
 from .base import DecodeResult, resolve_device
 
 __all__ = ["ADMMStructure", "QPADMMDecoder", "decode_qp_admm",
            "decode_qp_admm_population"]
 
 CHECK_EVERY = 32       # iterations between host reads of all(done)
+# ADMMStructure's tables, in the order the decoders stack them
+TABLES = ("con_var", "con_coef", "b", "var_con", "var_coef", "e")
 
 
 def _structure_caps(h: np.ndarray) -> tuple[int, int, int]:
@@ -92,74 +95,22 @@ class ADMMStructure:
                k_max_cap: int | None = None) -> "ADMMStructure":
         """Build the cascade from H. Optional caps pad the tables to fixed
         capacities, so that structures of different H with the same caps
-        stack."""
+        stack. The host core (``_native``) builds the tables when the caps
+        cover the cascade, as in the JAX package; otherwise, or when
+        ``LDPC_TPU_NO_NATIVE`` is set, :func:`_from_h_numpy` does, which
+        gives the same tables and raises ``ValueError`` on caps below the
+        cascade."""
         h = np.asarray(h, dtype=np.uint8) % 2
-        m, n = h.shape
-        cons: list[tuple[list[int], list[float], float]] = []
-
-        def add(varids, coefs, rhs):
-            cons.append((list(varids), list(coefs), float(rhs)))
-
-        def add_three(i, j, k):
-            add([i, j, k], [1.0, -1.0, -1.0], 0.0)
-            add([i, j, k], [-1.0, 1.0, -1.0], 0.0)
-            add([i, j, k], [-1.0, -1.0, 1.0], 0.0)
-            add([i, j, k], [1.0, 1.0, 1.0], 2.0)
-
-        pos = n
-        for i in range(m):
-            idx = np.nonzero(h[i])[0].tolist()
-            if not idx:
-                continue
-            if len(idx) == 1:
-                add([idx[0]], [1.0], 0.0)
-                continue
-            if len(idx) == 2:
-                add([idx[0], idx[1]], [1.0, -1.0], 0.0)
-                add([idx[0], idx[1]], [-1.0, 1.0], 0.0)
-                continue
-            last = idx[0]
-            for j in range(1, len(idx) - 2):
-                aux = pos
-                pos += 1
-                add_three(last, idx[j], aux)
-                last = aux
-            add_three(last, idx[-2], idx[-1])
-
-        n_var = pos
-        n_con = len(cons)
-        nv = n_var_cap or n_var
-        nc = n_con_cap or n_con
-        if nv < n_var or nc < n_con:
-            raise ValueError(f"caps ({nv}, {nc}) below the cascade's "
-                             f"({n_var}, {n_con})")
-
-        con_var = np.full((nc, 3), nv, dtype=np.int32)
-        con_coef = np.zeros((nc, 3), dtype=np.float32)
-        b = np.zeros((nc,), dtype=np.float32)
-        per_var: list[list[tuple[int, float]]] = [[] for _ in range(nv)]
-        for ci, (vids, cfs, rhs) in enumerate(cons):
-            b[ci] = rhs
-            for s, (vi, cf) in enumerate(zip(vids, cfs)):
-                con_var[ci, s] = vi
-                con_coef[ci, s] = cf
-                per_var[vi].append((ci, cf))
-
-        k_max = k_max_cap or max((len(p) for p in per_var), default=1)
-        if any(len(p) > k_max for p in per_var):
-            raise ValueError(f"k_max cap {k_max} below the cascade's")
-        var_con = np.full((nv, k_max), nc, dtype=np.int32)
-        var_coef = np.zeros((nv, k_max), dtype=np.float32)
-        e = np.zeros((nv,), dtype=np.float32)
-        for vi, plist in enumerate(per_var):
-            for s, (ci, cf) in enumerate(plist):
-                var_con[vi, s] = ci
-                var_coef[vi, s] = cf
-                e[vi] += cf * cf
-        # capacity-padded phantom variables get e == 0; e_min leaves them out
-        return ADMMStructure(n=n, n_var=nv, n_con=nc, con_var=con_var,
-                             con_coef=con_coef, b=b, var_con=var_con,
-                             var_coef=var_coef, e=e)
+        need = _structure_caps(h)
+        caps = [c or c_min for c, c_min in
+                zip((n_var_cap, n_con_cap, k_max_cap), need)]
+        if all(c >= c_min for c, c_min in zip(caps, need)):
+            out = _native.admm_build(h, *caps)
+            if out is not None:
+                return ADMMStructure(n=h.shape[1], n_var=caps[0],
+                                     n_con=caps[1],
+                                     **{k: out[k] for k in TABLES})
+        return _from_h_numpy(h, n_var_cap, n_con_cap, k_max_cap)
 
     @property
     def e_min(self) -> float:
@@ -167,6 +118,79 @@ class ADMMStructure:
         e == 0)."""
         real = self.e[self.e > 0]
         return float(real.min()) if real.size else float("inf")
+
+
+def _from_h_numpy(h: np.ndarray, n_var_cap: int | None = None,
+                  n_con_cap: int | None = None,
+                  k_max_cap: int | None = None) -> ADMMStructure:
+    """``ADMMStructure.from_h`` in NumPy."""
+    h = np.asarray(h, dtype=np.uint8) % 2
+    m, n = h.shape
+    cons: list[tuple[list[int], list[float], float]] = []
+
+    def add(varids, coefs, rhs):
+        cons.append((list(varids), list(coefs), float(rhs)))
+
+    def add_three(i, j, k):
+        add([i, j, k], [1.0, -1.0, -1.0], 0.0)
+        add([i, j, k], [-1.0, 1.0, -1.0], 0.0)
+        add([i, j, k], [-1.0, -1.0, 1.0], 0.0)
+        add([i, j, k], [1.0, 1.0, 1.0], 2.0)
+
+    pos = n
+    for i in range(m):
+        idx = np.nonzero(h[i])[0].tolist()
+        if not idx:
+            continue
+        if len(idx) == 1:
+            add([idx[0]], [1.0], 0.0)
+            continue
+        if len(idx) == 2:
+            add([idx[0], idx[1]], [1.0, -1.0], 0.0)
+            add([idx[0], idx[1]], [-1.0, 1.0], 0.0)
+            continue
+        last = idx[0]
+        for j in range(1, len(idx) - 2):
+            aux = pos
+            pos += 1
+            add_three(last, idx[j], aux)
+            last = aux
+        add_three(last, idx[-2], idx[-1])
+
+    n_var = pos
+    n_con = len(cons)
+    nv = n_var_cap or n_var
+    nc = n_con_cap or n_con
+    if nv < n_var or nc < n_con:
+        raise ValueError(f"caps ({nv}, {nc}) below the cascade's "
+                         f"({n_var}, {n_con})")
+
+    con_var = np.full((nc, 3), nv, dtype=np.int32)
+    con_coef = np.zeros((nc, 3), dtype=np.float32)
+    b = np.zeros((nc,), dtype=np.float32)
+    per_var: list[list[tuple[int, float]]] = [[] for _ in range(nv)]
+    for ci, (vids, cfs, rhs) in enumerate(cons):
+        b[ci] = rhs
+        for s, (vi, cf) in enumerate(zip(vids, cfs)):
+            con_var[ci, s] = vi
+            con_coef[ci, s] = cf
+            per_var[vi].append((ci, cf))
+
+    k_max = k_max_cap or max((len(p) for p in per_var), default=1)
+    if any(len(p) > k_max for p in per_var):
+        raise ValueError(f"k_max cap {k_max} below the cascade's")
+    var_con = np.full((nv, k_max), nc, dtype=np.int32)
+    var_coef = np.zeros((nv, k_max), dtype=np.float32)
+    e = np.zeros((nv,), dtype=np.float32)
+    for vi, plist in enumerate(per_var):
+        for s, (ci, cf) in enumerate(plist):
+            var_con[vi, s] = ci
+            var_coef[vi, s] = cf
+            e[vi] += cf * cf
+    # capacity-padded phantom variables get e == 0; e_min leaves them out
+    return ADMMStructure(n=n, n_var=nv, n_con=nc, con_var=con_var,
+                         con_coef=con_coef, b=b, var_con=var_con,
+                         var_coef=var_coef, e=e)
 
 
 def _pad_to_zero(idx: torch.Tensor, pad: int) -> torch.Tensor:

@@ -7,6 +7,7 @@ import argparse
 import csv
 import dataclasses
 import inspect
+import json
 import os
 
 import pytest
@@ -18,7 +19,8 @@ from ldpc_tpu.harness import reference_data as jref
 from ldpc_tpu.harness.experiment import ExperimentResult as JResult
 from ldpc_tpu.harness.report import ReportWriter as JReportWriter
 from ldpc_tpu_torch import config
-from ldpc_tpu_torch.apps import benchmark, qpadmm_grid, validate
+from ldpc_tpu_torch.apps import (benchmark, qpadmm_grid, scaling_bench,
+                                 validate)
 from ldpc_tpu_torch.decoders import (DECODER_NAMES, DEFAULT_BATCH,
                                      default_batch, make_decoder)
 from ldpc_tpu_torch.decoders.admm import QPADMMDecoder
@@ -282,6 +284,24 @@ ENTRY_POINTS = {"BPDecoder": BPDecoder, "ALPDecoder": ALPDecoder,
                 "run_multi_snr_experiment": run_multi_snr_experiment,
                 "run_grid": qpadmm_grid.run_grid,
                 "validate": validate.validate}
+
+
+def test_scaling_bench_takes_jax_layout_flag(capsys):
+    """JAX's command line, ``--layout`` included, runs the port's
+    ``scaling_bench``: the flag is accepted and ignored, the keys are those
+    of a run without it, and ``layout`` says what the port ran."""
+    argv = ["--matrix", os.path.join(ROOT, "data", "H.txt"), "--trials",
+            "256", "--batch-per-device", "64", "--device", "cpu"]
+    outs = [scaling_bench.main(["--layout", "mxu", *argv]),
+            scaling_bench.main(argv)]
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(line) for line in printed] == outs
+    assert set(outs[0]) == set(outs[1])
+    assert {"devices", "processes", "layout", "throughput_1dev"} <= \
+        set(outs[0])
+    assert outs[0]["layout"] == "torch-ref"
+    assert outs[0]["counters_1dev"] == outs[1]["counters_1dev"]
+    assert outs[0]["counters_1dev"]["total"] == 256
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
