@@ -49,7 +49,7 @@ printing one line before the next starts:
    ``lp_backend="kernel"`` and ``"xla"``: success agrees on >= 95 % of
    lanes (the solvers differ in float order and in their first chunk
    test);
-7. the AGC-ALP path's four kernels against their plain twins on the card,
+7. the AGC-ALP path's six kernels against their plain twins on the card,
    at AGC-ALP's shapes (128 lanes, optimalH, capacity 1408 x 280):
    the GF(2) elimination on an AGC-ALP batch's IPM solution after three
    cut rounds, on H02 (520 x 640) in the column order of seeded LP points
@@ -76,21 +76,37 @@ printing one line before the next starts:
    the matvecs, their plain versions, ``bmm`` on the float32 slice and the
    pack as CUDA graphs of calls (device time), warm and with a cold L2,
    beside each one's bound, and the host's cost per call apart; the normal
-   matrix the same way beside ``baddbmm`` on the float32 slice;
+   matrix the same way beside ``baddbmm`` on the float32 slice. Last the
+   IPM step's two kernels (``csrc/ipm_step.cu``: the step lengths and the
+   masked update, XLA fusions in JAX) against their twins
+   (``ops/ipm_ref.py``) bit for bit at T = 128, 640 and 1408 (128 lanes,
+   n = 280; lanes with NaN and inf directions, all-positive directions,
+   ties, steps clamped to 1, steps past the box), each timed as a CUDA
+   graph of calls and by events beside its twin's eager ops (counted and
+   timed the same ways) and its bound (bytes over the HBM rate);
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
-   capacity 1408, the IPM), which streams (``streaming="auto"``: finished
-   lanes refilled after each cut round), CSVs under ``build/``, with the
-   five kernels' launch counts reset before and read after, and the
-   matvecs' and the normal matrix's launches per row tier. Gates: FER
-   within |z| < 3.5 of the reference's 0.8704, no cut dropped, every kernel
-   launched. Printed beside it: the first 256 of those trials on the
+   capacity 1408, the IPM as CUDA graphs, the default on CUDA), which
+   streams (``streaming="auto"``: finished lanes refilled after each cut
+   round), CSVs under ``build/``, with the seven kernels' launch counts
+   reset before and read after, and the matvecs' and the normal matrix's
+   launches per row tier. Gates: FER within |z| < 3.5 of the reference's
+   0.8704, no cut dropped, every kernel launched. Then the same 512 trials
+   streamed with the IPM as CUDA graphs and with ``ipm_graphs = False``
+   (the eager loop), each lane's bits, success, rounds, ``cum_h``,
+   ``cum_g`` and dropped cuts recorded as it finishes: the two must be
+   equal lane by lane, in every counter and in every kernel's launches;
+   cw/s of both. Printed beside it: the first 256 of those trials on the
    batched runner (``streaming=False``), each run's FER, rounds, cut counts
    (``cum_h``/``cum_g``), cw/s and host syncs per 128 trials (torch's sync
-   debug mode), then each runner's launches per 128 trials (non-view ATen
-   operations plus the hand-written kernels, counted in separate runs
-   under a dispatch mode). Then the same 128 lanes decoded with the kernel
-   backends and with the plain ones
+   debug mode), then each runner's launches per 128 trials with graphs and
+   without, counted in separate runs under a dispatch mode: host launches
+   (non-view ATen operations, the hand-written kernels outside a graph and
+   one per graph replay) and device operations (the same with each replay
+   counted as its graph's kernel, copy and memset nodes); the graph run's
+   host launches streamed must be at most a tenth of the eager run's. The
+   peak device memory of the phase and the solve shapes captured. Then the
+   same 128 lanes decoded with the kernel backends and with the plain ones
    (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
    ``"xla"``): success agrees on >= 95 % of lanes (the IPM's stop tests
    read float32 errors summed in another order);
@@ -242,6 +258,9 @@ GAUSS_RAGGED = (63, 283)
 FIRST_GAUSS_MS = 0.226
 AGC_AGREE_MIN = 0.95
 AGC_BATCHED = 256
+# the IPM step's two kernels: tiers held to their twins, and the width
+IPM_TIERS = (128, 640, 1408)
+IPM_N = 280
 # phases 10-13: QP-ADMM (DEFAULT_BATCH["qp-admm"] = 1024, so 2048 trials
 # stream), Full LP, the fused multi-SNR BP run and the apps
 ADMM_SNR = -3.0
@@ -816,7 +835,9 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
                 "gemv_fwd": ("gemv_kernel", "GEMV_LAUNCHES"),
                 "gemv_tr": ("gemv_kernel", "GEMV_T_LAUNCHES"),
                 "normal_build": ("gemv_kernel", "NORMAL_LAUNCHES"),
-                "chol_diag_inv": ("chol_kernel", "LAUNCHES")}
+                "chol_diag_inv": ("chol_kernel", "LAUNCHES"),
+                "ipm_step_len": ("ipm_kernel", "STEP_LEN_LAUNCHES"),
+                "ipm_update": ("ipm_kernel", "UPDATE_LAUNCHES")}
 
 
 # every kernel of the port
@@ -853,6 +874,7 @@ def _agc_batch(h, g, rounds):
     from ldpc_tpu_torch.ops import ipm_solver
     dec = AGCALPDecoder(h, device=torch.device("cuda"))
     dec.ipm_factor_backend = "blocked"      # what "auto" picks on CUDA
+    dec.ipm_graphs = False      # every factor call on the host, recorded
     st = dec._init_state(_alp_llrs(g, AGC_LANES, 41))
     seen = []
     factor = ipm_solver.blocked_cholesky
@@ -1182,6 +1204,120 @@ def _normal_tiers(a_buf, gen):
     return out, ragged
 
 
+def _ipm_case(t, gen):
+    """A Newton step's inputs at AGC-ALP's width: 128 lanes of interior
+    values and random directions at T rows and n = 280 columns, and
+    special lanes: NaN in dx (1) and in dy (2), infinite directions (3),
+    all-positive directions, so both steps are 1 (4), one ratio in many
+    places (5), directions so small that the steps clamp to 1 (6), steps
+    past the box and the floors (7). Step lengths for the update drawn in
+    [0, 1.2)."""
+    import torch
+    dev = torch.device("cuda")
+    lanes, n, inf = AGC_LANES, IPM_N, float("inf")
+
+    def pos(w):
+        return torch.rand((lanes, w), generator=gen, device=dev) * 5.0 + 1e-3
+
+    def dirs(w):
+        return torch.randn((lanes, w), generator=gen, device=dev) * 2.0
+
+    x = torch.rand((lanes, n), generator=gen, device=dev) * 0.998 + 1e-3
+    v = {"s": pos(t), "x": x, "y": pos(t), "zl": pos(n), "zu": pos(n)}
+    d = {"ds": dirs(t), "dx": dirs(n), "dy": dirs(t), "dzl": dirs(n),
+         "dzu": dirs(n), "adx": dirs(t)}
+    d["dx"][1, 3] = float("nan")
+    d["dy"][2, -1] = float("nan")
+    d["ds"][3, 2], d["dx"][3, 1] = -inf, -inf
+    d["dy"][3, 0], d["dzl"][3, 0] = inf, inf
+    for k in ("ds", "dy", "dzl", "dzu"):
+        d[k][4] = d[k][4].abs()
+    d["dx"][4] = 0.0
+    for k in ("s", "y"):
+        v[k][5, ::3] = 0.75
+    for k in ("ds", "dy"):
+        d[k][5, ::3] = -1.5
+    v["x"][5, ::4], d["dx"][5, ::4] = 0.25, -0.5
+    v["zl"][5, ::5], d["dzl"][5, ::5] = 1.0, -2.0
+    for k in d:
+        d[k][6] *= 1e-5
+    d["dx"][7] = torch.where(d["dx"][7] < 0, -4.0, 4.0)
+    d["ds"][7], d["dy"][7] = -10.0, -10.0
+    v["w"] = 1.0 - v["x"]
+    v["ax"] = torch.randn((lanes, t), generator=gen, device=dev) * 3.0
+    ap = torch.rand(lanes, generator=gen, device=dev) * 1.2
+    ad = torch.rand(lanes, generator=gen, device=dev) * 1.2
+    return v, d, ap, ad
+
+
+def _ipm_step_tiers(gen):
+    """Phase 7's IPM step kernels at each tier of IPM_TIERS: the step
+    lengths and the masked update held to their twins bit for bit (NaN,
+    inf, all-positive, tied, clamped lanes included), then timed as CUDA
+    graphs of calls (device time) and by events (with the host's launch),
+    beside the twins' ~50 and ~30 eager ops, counted and timed the same
+    ways. Bound: bytes (each input read once, each output written once)
+    over the HBM rate. Returns per-tier rows for each kernel."""
+    import torch
+    from ldpc_tpu_torch.ops.ipm_kernel import ipm_step_len, ipm_update
+    from ldpc_tpu_torch.ops.ipm_ref import ipm_step_len_ref, ipm_update_ref
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    rows = {"ipm_step_len": [], "ipm_update": []}
+    lanes, n = AGC_LANES, IPM_N
+    for t in IPM_TIERS:
+        v, d, ap, ad = _ipm_case(t, gen)
+        args = (v["s"], d["ds"], v["x"], d["dx"], v["w"], v["y"], d["dy"],
+                v["zl"], d["dzl"], v["zu"], d["dzu"])
+        state = tuple(v[k] for k in ("x", "w", "s", "y", "zl", "zu", "ax"))
+        dirs = tuple(d[k] for k in ("dx", "dy", "ds", "dzl", "dzu", "adx"))
+        got, want = ipm_step_len(*args), ipm_step_len_ref(*args)
+        got_u = ipm_update(tuple(u.clone() for u in state), dirs, ap, ad)
+        want_u = ipm_update_ref(state, dirs, ap, ad)
+        torch.cuda.synchronize()
+        exact = (all(same(g, w) for g, w in zip(got, want)),
+                 all(same(g, w) for g, w in zip(got_u, want_u)))
+        special = (float(got[0][4]) == float(got[1][4]) == 1.0
+                   and float(got[0][6]) == float(got[1][6]) == 1.0
+                   and same(got_u[2][1], state[2][1].clamp_min(1e-12))
+                   and same(got_u[6][2], state[6][2])
+                   and bool(torch.isfinite(got_u[0]).all()))
+        scratch = tuple(u.clone() for u in state)
+        timed = {
+            "ipm_step_len": (
+                ipm_step_len, ipm_step_len_ref, args,
+                4 * lanes * (4 * t + 7 * n) + 8 * lanes),
+            "ipm_update": (
+                lambda *a: ipm_update(scratch, *a),
+                lambda *a: ipm_update_ref(state, *a), (dirs, ap, ad),
+                4 * lanes * (9 * t + 10 * n) + 8 * lanes)}
+        for (name, (kern, twin, call, nbytes)), ok in zip(timed.items(),
+                                                          exact):
+            row = {"max_abs_err": 0.0, "library_ms": None, "t": t,
+                   "shape": f"{lanes}x{t}x{n} f32 (rows x columns per lane)",
+                   "ms": _graph_ms(kern, [call] * WARM_CALLS),
+                   "plain_ms": _graph_ms(twin, [call] * WARM_CALLS),
+                   "events_ms": _time_ms(lambda: kern(*call)),
+                   "plain_events_ms": _time_ms(lambda: twin(*call)),
+                   "plain_launches": _launches(lambda: twin(*call)),
+                   **_bound(nbytes, 0, F32_OPS_PER_S)}
+            print(f"[7 agc-kernels] {name} {row['shape']}: bit for bit with "
+                  f"its twin {ok} (special lanes {special}); device "
+                  f"{row['ms']:.5f} ms (CUDA graph), {row['events_ms']:.5f} "
+                  f"ms by events; twin {row['plain_launches']} eager ops, "
+                  f"{row['plain_ms']:.5f} ms device, "
+                  f"{row['plain_events_ms']:.5f} ms by events; bound "
+                  f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
+                  f"({row['bound_ms'] / row['ms']:.3f} of it)", flush=True)
+            if not (ok and special):
+                raise AssertionError(f"{name} differs from its twin at "
+                                     f"T = {t}")
+            rows[name].append(row)
+    return rows
+
+
 def phase_agc_kernels_vs_ref():
     import torch
     from ldpc_tpu_torch import bench
@@ -1318,6 +1454,7 @@ def phase_agc_kernels_vs_ref():
             and int(both.sum()) >= AGC_AGREE_MIN * AGC_LANES):
         raise AssertionError("blocked factor + solve disagrees with "
                              "cholesky_ex + cholesky_solve")
+    rows.update(_ipm_step_tiers(gen))
     return rows
 
 
@@ -1343,11 +1480,18 @@ class _HostReads:
         self._catch.__exit__(*exc)
 
 
-def _launches(fn):
-    """Runs ``fn`` and counts what it sends to the card: ATen operations
-    that are not views (each launches about one kernel; this counts
-    dispatches, not kernels) plus the hand-written kernels' launches."""
+def _launch_counts(fn):
+    """Runs ``fn`` and counts what it sends to the card: (host launches,
+    device operations, graphs captured meanwhile). Both count the ATen
+    operations that are not views (each launches about one kernel; this
+    counts dispatches, not kernels) and the hand-written kernels' launches
+    made outside a CUDA graph; then the host adds one launch per graph
+    replay and the device each replay's kernel, copy and memset nodes.
+    Without graphs the two are equal. A graph captured inside ``fn`` would
+    add its warm-up's and capture's dispatches: callers run ``fn`` once
+    before."""
     from torch.utils._python_dispatch import TorchDispatchMode
+    from ldpc_tpu_torch.ops import ipm_graph
 
     class Ops(TorchDispatchMode):
         n = 0
@@ -1357,10 +1501,67 @@ def _launches(fn):
                 self.n += 1
             return func(*args, **(kwargs or {}))
 
-    before = sum(_agc_counts(counters=ALL_COUNTERS).values())
+    def tallies():
+        return (sum(_agc_counts(counters=ALL_COUNTERS).values()),
+                ipm_graph.CALLS, ipm_graph.REPLAYS, ipm_graph.NODES,
+                ipm_graph.CAPTURES)
+
+    before = tallies()
     with Ops() as ops:
         fn()
-    return ops.n + sum(_agc_counts(counters=ALL_COUNTERS).values()) - before
+    kern, calls, replays, nodes, captures = (
+        a - b for a, b in zip(tallies(), before))
+    outside = ops.n + kern - calls
+    return outside + replays, outside + nodes, captures
+
+
+def _launches(fn):
+    """The host launches of ``fn`` (:func:`_launch_counts`)."""
+    return _launch_counts(fn)[0]
+
+
+class _LaneLog:
+    """Records, after each streamed cut round of AGC-ALP, every lane that
+    finished in it: its bits, success, rounds, ``cum_h``, ``cum_g`` and
+    dropped cuts (-1 in the lanes that did not finish), on the device. Two
+    streamed runs of the same trials decode alike lane by lane exactly when
+    their records are equal."""
+
+    def __enter__(self):
+        import torch
+        from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder as cls
+        chunk = cls.stream_chunk
+        self.cls, self.rows = cls, []
+        log = self
+
+        def stream_chunk(dec, st):
+            before = st["done"].clone()
+            st = chunk(dec, st)
+            res = dec._finish(st)
+            rec = torch.cat([res.bits.to(torch.int32),
+                             res.success[:, None].to(torch.int32)]
+                            + [st[k][:, None].to(torch.int32) for k in
+                               ("rounds", "cum_h", "cum_g", "dropped")],
+                            dim=1)
+            log.rows.append(torch.where((st["done"] & ~before)[:, None],
+                                        rec, -1))
+            return st
+
+        cls.stream_chunk = stream_chunk
+        return self
+
+    def __exit__(self, *exc):
+        del self.cls.stream_chunk
+
+    def same_as(self, other) -> tuple[bool, int]:
+        """(equal records, the first round whose records differ or -1)."""
+        import torch
+        for i, (a, b) in enumerate(zip(self.rows, other.rows)):
+            if not torch.equal(a, b):
+                return False, i
+        if len(self.rows) != len(other.rows):
+            return False, min(len(self.rows), len(other.rows))
+        return True, -1
 
 
 class _CutTally:
@@ -1440,13 +1641,14 @@ def phase_agc_path():
     from ldpc_tpu_torch.config import SweepConfig
     from ldpc_tpu_torch.decoders import default_batch
     from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
-    from ldpc_tpu_torch.harness.experiment import run_experiment
+    from ldpc_tpu_torch.harness.experiment import COUNTERS, run_experiment
     from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
-                                                       Z_BOUND)
-    from ldpc_tpu_torch.ops import gemv_kernel
+                                                       Z_BOUND, z_score)
+    from ldpc_tpu_torch.ops import gemv_kernel, ipm_graph, ipm_solver
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
     fer_ref = REF_FER_OPT["AGC-ALP"][SNR_GRID.index(AGC_SNR)]
     cfg = SweepConfig(matrix=str(bench.MATRIX), decoders=("agc-alp",),
                       snrs=(AGC_SNR,), trials=AGC_TRIALS,
@@ -1455,6 +1657,7 @@ def phase_agc_path():
     os.makedirs("build", exist_ok=True)
     _agc_counts(reset=True)
     gemv_kernel.reset_tier_counts()
+    captures = ipm_graph.CAPTURES
     with _CutTally(skip=1) as cuts, _HostReads() as reads:
         t0 = time.perf_counter()
         rows = run_sweep(cfg, device=dev)
@@ -1466,10 +1669,13 @@ def phase_agc_path():
                  gemv_kernel.NORMAL_TIER_LAUNCHES.items()))}
     res = rows[0][2]
     z = _agc_line(f"run_sweep agc-alp {AGC_SNR} dB, batches of "
-                  f"{default_batch('agc-alp')}, streamed (the default)", res,
-                  fer_ref, cuts, reads, secs)
+                  f"{default_batch('agc-alp')}, streamed (the default), the "
+                  f"IPM as CUDA graphs (the default)", res, fer_ref, cuts,
+                  reads, secs)
     print(f"[8 agc path] streamed run's launches {launches}; per row tier "
-          f"T: {tiers}", flush=True)
+          f"T: {tiers}; IPM graphs captured in the run "
+          f"{ipm_graph.CAPTURES - captures} (four per solve shape)",
+          flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the AGC-ALP path did not launch every kernel: "
                              f"{launches}")
@@ -1481,33 +1687,91 @@ def phase_agc_path():
     if not 0.0 < res.throughput < float("inf"):
         raise AssertionError(f"bad throughput {res.throughput}")
 
-    # the first AGC_BATCHED of those trials on the batched runner, then the
-    # launches per AGC_LANES trials of each runner, counted apart
     h = read_pcm(str(bench.MATRIX))
     g, _ = gf2_nullspace(h)
     cw = gen_random_codewords(g, AGC_TRIALS,
                               torch.Generator().manual_seed(cfg.seed), dev)
-    dec = AGCALPDecoder(h, device=dev)
 
-    def run(trials, streaming):
+    def decoder(graphs):
+        dec = AGCALPDecoder(h, device=dev)
+        dec.ipm_graphs = None if graphs else False
+        return dec
+
+    def run(dec, trials, streaming):
         return run_experiment(dec, h, cw[:trials], AGC_SNR, cfg.seed + 1,
                               AGC_LANES, device=dev, warmup=False,
                               streaming=streaming)
 
+    # the same trials with the IPM as CUDA graphs and as the eager loop:
+    # equal lane by lane, equal launches of every kernel
+    ab = {}
+    for mode in ("graph", "eager"):
+        dec = decoder(mode == "graph")
+        _agc_counts(reset=True)
+        with _LaneLog() as log:
+            t0 = time.perf_counter()
+            out = run(dec, AGC_TRIALS, True)
+            secs = time.perf_counter() - t0
+        ab[mode] = (out, log, _agc_counts())
+        print(f"[8 agc path] {mode}: {out.total} trials streamed, FER "
+              f"{out.fer:.4f} (z = {z_score(out.fer, out.total, fer_ref):+.2f}"
+              f"), mean rounds {out.sum_iterations / out.total:.3f}, "
+              f"{out.throughput:.2f} cw/s ({secs:.2f} s, the lane log on), "
+              f"launches {ab[mode][2]}", flush=True)
+    (gres, glog, gl), (eres, elog, el) = ab["graph"], ab["eager"]
+    lanes_same, first = glog.same_as(elog)
+    same_counters = all(getattr(gres, k) == getattr(eres, k)
+                        for k in COUNTERS)
+    print(f"[8 agc path] graph vs eager on the same {AGC_TRIALS} trials: "
+          f"every lane's bits, success, rounds, cum_h, cum_g and dropped "
+          f"equal {lanes_same} (first differing round {first}, of "
+          f"{len(glog.rows)} / {len(elog.rows)}); counters equal "
+          f"{same_counters}; every kernel's launches equal {gl == el}",
+          flush=True)
+    if not (lanes_same and same_counters and gl == el):
+        raise AssertionError("AGC-ALP with the IPM as CUDA graphs differs "
+                             "from the eager loop")
+
+    # the first AGC_BATCHED of those trials on the batched runner, then the
+    # launches per AGC_LANES trials of each runner and mode, counted apart
+    # (after one uncounted run, so that no graph is captured inside)
     with _CutTally() as bcuts, _HostReads() as breads:
         t0 = time.perf_counter()
-        bres = run(AGC_BATCHED, False)
+        bres = run(decoder(True), AGC_BATCHED, False)
         bsecs = time.perf_counter() - t0
     _agc_line(f"run_experiment(streaming=False), the first {AGC_BATCHED} "
               f"trials, batched", bres, fer_ref, bcuts, breads, bsecs)
-    per_stream = _launches(lambda: run(2 * AGC_LANES, True)) / 2
-    per_batch = _launches(lambda: run(AGC_LANES, False))
-    print(f"[8 agc path] launches per {AGC_LANES} trials (non-view ATen "
-          f"operations plus the hand-written kernels, counted on "
-          f"{2 * AGC_LANES} trials streamed and {AGC_LANES} batched): "
-          f"streamed {per_stream:.1f}, batched {per_batch:.1f}", flush=True)
     if bres.sum_dropped != 0:
         raise AssertionError(f"batched AGC-ALP dropped {bres.sum_dropped}")
+    per = {}
+    for mode in ("graph", "eager"):
+        dec = decoder(mode == "graph")
+        for label, trials, streaming in (("streamed", 2 * AGC_LANES, True),
+                                         ("batched", AGC_LANES, False)):
+            if mode == "graph":
+                run(dec, trials, streaming)
+            host, device, caught = _launch_counts(
+                lambda: run(dec, trials, streaming))
+            per[mode, label] = (host * AGC_LANES / trials,
+                                device * AGC_LANES / trials, caught)
+    print(f"[8 agc path] launches per {AGC_LANES} trials (non-view ATen "
+          f"operations plus the hand-written kernels outside a graph, plus "
+          f"one per graph replay on the host or the replay's kernel, copy "
+          f"and memset nodes on the device; counted on {2 * AGC_LANES} "
+          f"trials streamed and {AGC_LANES} batched): " + "; ".join(
+              f"{mode} {label} host {h_:.1f}, device {d_:.1f} (graphs "
+              f"captured inside {c_})" for (mode, label), (h_, d_, c_)
+              in per.items()), flush=True)
+    ratio = per["graph", "streamed"][0] / per["eager", "streamed"][0]
+    print(f"[8 agc path] host launches streamed, graph / eager: {ratio:.4f} "
+          f"(bound 0.1); IPM solve shapes captured "
+          f"{len(ipm_solver._graph_solves)}, peak device memory in the phase "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB "
+          f"(reserved {torch.cuda.memory_reserved(dev) / 2 ** 30:.3f} GiB)",
+          flush=True)
+    if not ratio <= 0.1:
+        raise AssertionError(f"graph host launches are {ratio:.4f} of the "
+                             f"eager run's")
 
     llr = _alp_llrs(g, AGC_LANES, 43)
     out = {}
@@ -2516,7 +2780,11 @@ def main() -> int:
             ("normal_build", "normal_build.cu",
              "ldpc_tpu/ops/pallas/gemv_kernel.py:142"),
             ("chol_diag_inv", "chol_diag_inv.cu",
-             "ldpc_tpu/ops/pallas/chol_kernel.py:45")):
+             "ldpc_tpu/ops/pallas/chol_kernel.py:45"),
+            ("ipm_step_len", "ipm_step.cu",
+             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267"),
+            ("ipm_update", "ipm_step.cu",
+             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267")):
         entry = {"name": name, "route": "cuda",
                  "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
                  "launches": agc_launches[name]}
@@ -2558,6 +2826,15 @@ def main() -> int:
             print(f"[8 agc path] {name}: {sum(tiers[name].values())} "
                   f"launches, ~{on_path:.3f} ms on the path at phase 7's "
                   f"cold times per tier", flush=True)
+        elif name.startswith("ipm_"):
+            # bit for bit at every tier; the times at the deepest tier,
+            # device time (CUDA graph), the other tiers' beside them
+            row = _worst_and_last(agc_rows[name])
+            entry.update({k: row[k] for k in keys}, shape=row["shape"],
+                         events_ms=row["events_ms"],
+                         plain_events_ms=row["plain_events_ms"],
+                         plain_launches=row["plain_launches"],
+                         tiers=agc_rows[name])
         else:
             row = _worst_and_last(agc_rows[name])
             entry.update({k: row[k] for k in keys}, shape=row["shape"])

@@ -155,7 +155,8 @@ class _AdaptiveLPBase(nn.Module):
     the batched interior-point solver :func:`..ops.ipm_solver.ipm_box_lp`,
     warm-started from the previous round, whose matvec and factor backends
     are the attributes ``ipm_matvec_backend`` and ``ipm_factor_backend``
-    (``"auto"``: the kernels on CUDA, the plain twins on the CPU).
+    (``"auto"``: the kernels on CUDA, the plain twins on the CPU) and whose
+    CUDA graphs are ``ipm_graphs`` (None: on CUDA; False: the eager loop).
     Subclasses with ``use_gauss`` add the Gaussian-elimination cut source
     (:meth:`_gauss_sup`, AGC-ALP).
     """
@@ -188,6 +189,8 @@ class _AdaptiveLPBase(nn.Module):
         self.ipm_warm = True
         self.ipm_matvec_backend = "auto"
         self.ipm_factor_backend = "auto"
+        # the solve as CUDA graphs (None: on CUDA; False: the eager loop)
+        self.ipm_graphs = None
         # adaptive inner-solve budget: chunks of lp_iters up to lp_max_iters,
         # stopping when the worst batch error is below lp_tol; the cut
         # threshold must exceed it, else residual violations on existing
@@ -282,7 +285,8 @@ class _AdaptiveLPBase(nn.Module):
                               iters=self.ipm_iters, tol=self.ipm_tol,
                               check_every=self.ipm_check_every, active=act,
                               matvec_backend=self.ipm_matvec_backend,
-                              factor_backend=self.ipm_factor_backend, **warm)
+                              factor_backend=self.ipm_factor_backend,
+                              graphs=self.ipm_graphs, **warm)
         args = (c, a_buf[:, :t], rhs_buf[:, :t], x, y[:, :t],
                 self.lp_max_iters)
         kw = dict(tol=self.lp_tol, check_every=self.lp_iters, active=act,

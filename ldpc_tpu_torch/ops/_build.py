@@ -122,6 +122,11 @@ def load() -> ctypes.CDLL:
             lib.ldpc_chol_diag_inv.restype = i
             lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.ldpc_gf2_gauss.restype = i
+            f = ctypes.c_float
+            lib.ldpc_ipm_step_len.argtypes = [p] * 13 + [i, i, i, f, p]
+            lib.ldpc_ipm_step_len.restype = i
+            lib.ldpc_ipm_update.argtypes = [p] * 15 + [i, i, i, f, f, p]
+            lib.ldpc_ipm_update.restype = i
             lib.ldpc_smem_optin_limit.argtypes = [i]
             lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]

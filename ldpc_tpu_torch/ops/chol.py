@@ -56,8 +56,9 @@ def blocked_cholesky(m: torch.Tensor, nb: int = 64) -> CholFactors:
     if n_pad != n:
         mp = m.new_zeros((bsz, n_pad, n_pad))
         mp[:, :n, :n] = m
-        tail = torch.arange(n, n_pad, device=m.device)
-        mp[:, tail, tail] = 1.0
+        # a fill of the diagonal's view, not an index_put of a number
+        # (which copies the number to the card: not capturable)
+        mp.diagonal(dim1=1, dim2=2)[:, n:].fill_(1.0)
         m = mp
     l_full = m.new_zeros((bsz, n_pad, n_pad))
     inv_diag = m.new_empty((p_cnt, bsz, nb, nb))

@@ -25,7 +25,8 @@ def cholesky_nan(m: torch.Tensor) -> torch.Tensor:
     l, info = torch.linalg.cholesky_ex(m, check_errors=False)
     lower = torch.ones(m.shape[-2:], dtype=torch.bool,
                        device=m.device).tril()
-    return torch.where((info != 0)[..., None, None] & lower, float("nan"), l)
+    # masked_fill, not torch.where with a number: capturable in a CUDA graph
+    return l.masked_fill((info != 0)[..., None, None] & lower, float("nan"))
 
 
 def chol_diag_inv_ref(d: torch.Tensor):

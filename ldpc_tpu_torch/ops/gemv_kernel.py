@@ -67,17 +67,28 @@ def reset_tier_counts() -> None:
     NORMAL_TIER_LAUNCHES.clear()
 
 
-def pack_rows(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_rows(a: torch.Tensor, out: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The int8 copy of a (B, T, n) cut slice (any strides) the matvec
     kernels read: (B, T, n_pad) contiguous, n_pad = n rounded up to 16, pad
     columns zero; and a 0-d bool tensor on a's device, true when every entry
-    of ``a`` is -1, 0 or 1 (the copy is exact only then). No host read."""
+    of ``a`` is -1, 0 or 1 (the copy is exact only then). No host read.
+    ``out``: a buffer of that shape to pack into, whose pad columns are
+    zero (as a previous pack leaves them); only its first n columns are
+    written."""
     if a.dim() != 3:
         raise ValueError(f"pack_rows: a must be 3-D, got shape "
                          f"{tuple(a.shape)}")
     bsz, t, n = a.shape
     n_pad = -(-n // PAD) * PAD
-    a8 = torch.zeros((bsz, t, n_pad), dtype=torch.int8, device=a.device)
+    if out is None:
+        a8 = torch.zeros((bsz, t, n_pad), dtype=torch.int8, device=a.device)
+    elif (out.dtype != torch.int8 or tuple(out.shape) != (bsz, t, n_pad)
+          or out.device != a.device or not out.is_contiguous()):
+        raise ValueError(f"pack_rows: out must be a contiguous int8 "
+                         f"{(bsz, t, n_pad)} tensor on {a.device}")
+    else:
+        a8 = out
     view = a8[..., :n]
     view.copy_(a)
     ok = ((view == a) & (view.abs() <= 1)).all()
