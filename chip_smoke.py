@@ -124,8 +124,18 @@ printing one line before the next starts:
     each runner): all eight counters of every run equal (no quantity of
     QP-ADMM couples lanes). 64 of the lanes decoded on the card and on the
     CPU at ``max_iter`` 2,000: bits and success equal.
-    A 64-iteration chunk at 1024 lanes: ms per iteration and dispatches per
-    iteration.
+    A 64-iteration chunk at 1024 lanes: ms per iteration, dispatches per
+    iteration and the kernel's launches per chunk.
+    The iteration kernel (``csrc/admm_iterate.cu``) against its twin
+    (``ops/admm_ref.py``) on the card at the batch's 1024 optimalH lanes:
+    the state after 32 and after 512 iterations and the batched decode at
+    ``max_iter`` 10,000 (bits, success, iterations), equal on every lane
+    but ``sum2`` ties (the kernel sums sum2 in its own order), which are
+    printed with both sum2 values after reruns that reach equal states;
+    any other difference fails. Device ms per iteration of one 512-iteration
+    launch (no lane stopping) by CUDA events, the twin's by events over 32
+    iterations, and the bound (operations: the float32 work of an
+    iteration; the chunk's bytes over its iterations are far below).
     H02 at the defaults (e_min 2: 2 * 0.55 <= 1.2), 64 lanes: FER 1.0 and
     no lane successful;
 11. Full LP: ``run_sweep`` with decoders ``full-lp``, -3 dB, 512 trials in
@@ -190,8 +200,10 @@ printing one line before the next starts:
     its line comes before the kernels' JSON line, not in it.
 
 Phases 10-16 reset every kernel's launch count before their path and print
-the counts after it (phase 12 runs BP's kernel, phase 15 BP's and the PDHG
-kernel in every rank, phase 16 none: it runs on the host).
+the counts after it (phase 12 runs BP's kernel, phase 15 BP's, the PDHG
+kernel and QP-ADMM's in every rank, phase 16 none: it runs on the host);
+QP-ADMM's iteration kernel must have launched on phases 10, 13, 14 and
+15.
 Each phase prints its seconds. Then the script prints the host core's JSON
 line, the kernels' JSON line, the card's ``name, power.limit`` line and,
 last,
@@ -269,6 +281,9 @@ ADMM_CPU_LANES = 64
 ADMM_CPU_ITERS = 2000   # the card-vs-CPU decode's max_iter, as the gpu test's
 ADMM_H02_LANES = 64
 ADMM_CHUNK = 64
+ADMM_STATE_ITERS = (32, 512)   # the kernel's state against its twin's
+ADMM_TIMED_ITERS = 512         # one launch, timed by events
+ADMM_TWIN_ITERS = 32
 LP_TRIALS = 512
 LP_CPU_LANES = 32
 LP_X_TOL = 1e-4     # |x card - x CPU| after 2000 steps (GEMM sum order)
@@ -842,7 +857,8 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
 
 # every kernel of the port
 ALL_COUNTERS = {"bp_decode": ("bp_kernel", "LAUNCHES"),
-                "pdhg_chunk": ("pdhg_kernel", "LAUNCHES"), **AGC_COUNTERS}
+                "pdhg_chunk": ("pdhg_kernel", "LAUNCHES"), **AGC_COUNTERS,
+                "admm_iterate": ("admm_kernel", "ITERATE_LAUNCHES")}
 
 
 def _agc_counts(reset: bool = False, counters=AGC_COUNTERS) -> dict:
@@ -1870,6 +1886,90 @@ def _same_counters(a, b) -> bool:
     return all(getattr(a, k) == getattr(b, k) for k in COUNTERS)
 
 
+def _admm_kernel_vs_twin(dec, llr):
+    """Phase 10's check of QP-ADMM's iteration kernel against its twin on
+    the card at the batch's width (``llr`` (B, n) on the card, ``dec`` at
+    the defaults): the state after ADMM_STATE_ITERS iterations from fresh
+    lanes and the batched decode's state at ``dec.max_iter``, each equal on
+    every lane but sum2 ties (printed); then device ms per iteration of one
+    ADMM_TIMED_ITERS-iteration launch with no lane stopping (events), the
+    twin's over ADMM_TWIN_ITERS, and the bound. Returns the JSON row's
+    numbers."""
+    import torch
+    from ldpc_tpu_torch.ops import admm_kernel
+    from ldpc_tpu_torch.ops.admm_ref import admm_iterate_ref, stop_ties
+    kern, twin = admm_kernel.admm_iterate, admm_iterate_ref
+    st = dec.stream_init(llr)
+    start = (st["q"], st["v"], st["z"], st["yl"], st["done"][:, None],
+             st["it"][:, None])
+    tables = dec._population()
+    args = (tables, dec.alpha, dec.mu, dec.eps_stop, dec.max_iter)
+    bsz, n_con = llr.shape[0], dec.structure.n_con
+    err = 0.0
+    for iters in ADMM_STATE_ITERS + (dec.max_iter,):
+        t0 = time.perf_counter()
+        got = kern(*(t.clone() for t in start), *args, iters)
+        want = twin(*start, *args, iters)
+        ties, others = stop_ties(start, got, want, *args[:4], kern, twin)
+        keep = torch.ones((bsz, 1), dtype=torch.bool, device=llr.device)
+        for lane, cand, *_ in ties:
+            keep[lane, cand] = False
+        same = {}
+        for key, a, b in zip(("v", "z", "yl", "done", "it"), got, want):
+            a, b = a.view(bsz, 1, -1)[keep], b.view(bsz, 1, -1)[keep]
+            same[key] = torch.equal(a, b)
+            if key in ("v", "z", "yl"):
+                err = max(err, float((a - b).abs().max()))
+        label = ("the batched decode" if iters == dec.max_iter else
+                 f"{iters} iterations")
+        extra = ""
+        if iters == dec.max_iter:       # the decode's bits, as it reads v
+            bits = [r[0][:, :dec.n][keep[:, 0]] > 0.5 for r in (got, want)]
+            same["bits"] = torch.equal(*bits)
+            extra = f", mean iterations {float(got[4].float().mean()):.1f}"
+        print(f"[10 qp-admm path] admm_iterate against its twin, {bsz} "
+              f"lanes, {label} (max_iter {dec.max_iter}): equal outside "
+              f"ties {same}{extra}; lanes done {int(got[3].sum())}; sum2 "
+              f"ties (lane, candidate, iteration, kernel sum2, twin sum2) "
+              f"{ties}; other differences {others}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if others or not all(same.values()):
+            raise AssertionError(f"admm_iterate differs from its twin: "
+                                 f"{same}, {others}")
+
+    # device time per iteration: one launch with no lane stopping
+    never = (float("-inf"), 2 ** 31 - 1)
+    copies = [tuple(t.clone() for t in start) for _ in range(REPEATS + 1)]
+    ms = _time_ms(lambda: kern(*copies.pop(), tables, dec.alpha, dec.mu,
+                               *never, ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
+    plain = _time_ms(lambda: twin(*start, tables, dec.alpha, dec.mu, *never,
+                                  ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
+    # the work of one iteration: each variable's slot sums and its five
+    # other operations, each constraint's thirteen; the bytes a chunk moves
+    # (q, v, z, yl read, v, z, yl written, the packed tables read) over its
+    # iterations
+    slots = int((tables["var_code"] != 0).sum())
+    n_var = dec.structure.n_var
+    ops = bsz * (slots + 5 * n_var + 13 * n_con)
+    nbytes = (4 * bsz * (2 * n_var + 2 * n_con + n_var + 2 * n_con)
+              + sum(tables[k].numel() * tables[k].element_size() for k in
+                    ("var_code", "var_len", "con_code", "b", "e")))
+    bound = _bound(nbytes / ADMM_TIMED_ITERS, ops, F32_OPS_PER_S)
+    print(f"[10 qp-admm path] admm_iterate at {bsz} lanes: "
+          f"{ms:.6f} ms per iteration of device time (one "
+          f"{ADMM_TIMED_ITERS}-iteration launch, events), twin "
+          f"{plain:.6f} ms ({ADMM_TWIN_ITERS} iterations, events), bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {ops} float32 "
+          f"operations per iteration; {nbytes} bytes per launch); "
+          f"kernel/bound {ms / bound['bound_ms']:.1f}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": None, **bound,
+            "shape": f"{bsz} lanes x optimalH (n_var {n_var}, n_con "
+                     f"{n_con}), alpha {dec.alpha}, mu {dec.mu}, -3 dB, ms "
+                     f"per iteration of a {ADMM_TIMED_ITERS}-iteration "
+                     f"launch"}
+
+
 def phase_qpadmm_path():
     import torch
     from ldpc_tpu_torch import bench
@@ -1883,6 +1983,7 @@ def phase_qpadmm_path():
     from ldpc_tpu_torch.harness.experiment import channel_step, run_experiment
     from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
                                                        Z_BOUND, z_score)
+    from ldpc_tpu_torch.ops import admm_kernel
 
     dev = torch.device("cuda")
     fer_ref = REF_FER_OPT["QP-ADMM"][SNR_GRID.index(ADMM_SNR)]
@@ -1897,7 +1998,8 @@ def phase_qpadmm_path():
         t0 = time.perf_counter()
         rows = run_sweep(cfg, device=dev)
         secs = time.perf_counter() - t0
-    _path_counts("10 qp-admm path", _agc_counts(counters=ALL_COUNTERS))
+    counts = _agc_counts(counters=ALL_COUNTERS)
+    _path_counts("10 qp-admm path", counts, need=("admm_iterate",))
     res = rows[0][2]
     z = z_score(res.fer, res.total, fer_ref)
     print(f"[10 qp-admm path] run_sweep qp-admm {ADMM_SNR} dB, {res.total} "
@@ -1954,12 +2056,17 @@ def phase_qpadmm_path():
     torch.cuda.synchronize()
     ms_it = (time.perf_counter() - t0) * 1e3 / ADMM_CHUNK
     fresh = dec.stream_init(llr)
+    launches0 = admm_kernel.ITERATE_LAUNCHES
     ops = _launches(lambda: fresh.update(dec.stream_chunk(fresh)))
     per_it = ops / int(fresh["it"].max())
     print(f"[10 qp-admm path] {bsz} lanes, {ADMM_CHUNK}-iteration chunks: "
-          f"{ms_it:.4f} ms per iteration by the host clock, {per_it:.1f} "
-          f"dispatches per iteration (non-view ATen operations)", flush=True)
+          f"{ms_it:.4f} ms per iteration by the host clock, {per_it:.4f} "
+          f"dispatches per iteration (non-view ATen operations and kernel "
+          f"launches), admm_iterate launches per chunk "
+          f"{admm_kernel.ITERATE_LAUNCHES - launches0}", flush=True)
     del dec.stream_chunk_iters
+    row = _admm_kernel_vs_twin(dec, llr)
+    row["launches"] = counts["admm_iterate"]
 
     llr = llr[:ADMM_CPU_LANES]
     card = QPADMMDecoder(h, max_iter=ADMM_CPU_ITERS,
@@ -1998,6 +2105,7 @@ def phase_qpadmm_path():
           flush=True)
     if fer02 != 1.0 or bool(r02.success.any()) or bool(r02.bits.any()):
         raise AssertionError("QP-ADMM on H02 at the defaults must fail")
+    return row
 
 
 def phase_full_lp():
@@ -2139,7 +2247,8 @@ def phase_apps():
     fers, best = qpadmm_grid.run_grid(cfg, device=dev,
                                       log=lambda *a, **k: None)
     secs = time.perf_counter() - t0
-    _path_counts("13 apps", _agc_counts(counters=ALL_COUNTERS))
+    _path_counts("13 apps", _agc_counts(counters=ALL_COUNTERS),
+                 need=("admm_iterate",))
     h = read_pcm(cfg.matrix)
     cw, llr = qpadmm_grid.grid_channel(cfg, h, dev)
     diff = []
@@ -2239,6 +2348,7 @@ def phase_optimizer():
     from ldpc_tpu_torch.decoders.admm import (ADMMStructure, QPADMMDecoder,
                                               decode_qp_admm,
                                               decode_qp_admm_population)
+    from ldpc_tpu_torch.ops import admm_kernel
 
     dev = torch.device("cuda")
     os.makedirs("build", exist_ok=True)
@@ -2263,7 +2373,8 @@ def phase_optimizer():
         secs = time.perf_counter() - t0
     finally:
         optimize_h.PopulationEvaluator = base
-    _path_counts("14 optimizer", _agc_counts(counters=ALL_COUNTERS))
+    _path_counts("14 optimizer", _agc_counts(counters=ALL_COUNTERS),
+                 need=("admm_iterate",))
 
     def kind(call):
         if call[2] == cfg.screen_iters:
@@ -2390,12 +2501,15 @@ def phase_optimizer():
     out = chunk()
     torch.cuda.synchronize()
     ms_it = (time.perf_counter() - t0) * 1e3 / OPT_CHUNK
+    launches0 = admm_kernel.ITERATE_LAUNCHES
     ops = _launches(chunk) / OPT_CHUNK
     print(f"[14 optimizer] population decode at {llrs.shape[0]} x "
           f"{llrs.shape[1]} = {llrs.shape[0] * llrs.shape[1]} lanes, "
           f"{OPT_CHUNK} iterations: {ms_it:.4f} ms per iteration by the "
-          f"host clock, {ops:.1f} dispatches per iteration (non-view ATen "
-          f"operations); lanes done after {OPT_CHUNK} iterations: "
+          f"host clock, {ops:.4f} dispatches per iteration (non-view ATen "
+          f"operations and kernel launches; admm_iterate launches per "
+          f"decode {admm_kernel.ITERATE_LAUNCHES - launches0}); lanes done "
+          f"after {OPT_CHUNK} iterations: "
           f"{int((out.iterations < OPT_CHUNK).sum())}", flush=True)
 
 
@@ -2556,6 +2670,8 @@ def phase_worlds():
     if sc["backend"] != "nccl" or sc["layout"] != "kernel":
         raise AssertionError(f"world of 1: {sc}")
     _path_counts("15 worlds", one["scaling_launches"], need=("bp_decode",))
+    _path_counts("15 worlds", one["admm_launches"], need=("admm_iterate",))
+    _path_counts("15 worlds", one["opt_launches"], need=("admm_iterate",))
     if sc["bp_decode_launches"][0] <= 0:
         raise AssertionError("scaling_bench did not launch bp_decode")
     if [sc["counters_1dev"][k] for k in sc["counters_1dev"]] != one["bp"]:
@@ -2576,9 +2692,14 @@ def phase_worlds():
               f"launches), ALP {r['alp']} ({r['alp_cws']:.1f} cw/s, "
               f"{alp_n} pdhg_chunk launches), QP-ADMM {r['admm']} "
               f"({r['admm_cws']:.1f} cw/s)", flush=True)
-        if bp_n <= 0 or alp_n <= 0:
+        admm_n = r["admm_launches"]["admm_iterate"]
+        opt_n = r["opt_launches"]["admm_iterate"]
+        print(f"[15 worlds] (b) rank {r['rank']}: admm_iterate launches, "
+              f"QP-ADMM streamed {admm_n}, optimizer {opt_n}", flush=True)
+        if min(bp_n, alp_n, admm_n, opt_n) <= 0:
             raise AssertionError(f"rank {r['rank']} launched bp_decode "
-                                 f"{bp_n}, pdhg_chunk {alp_n} times")
+                                 f"{bp_n}, pdhg_chunk {alp_n}, admm_iterate "
+                                 f"{admm_n} and {opt_n} times")
         for key in ("bp", "alp", "admm"):
             if r[key] != one[key]:
                 raise AssertionError(f"rank {r['rank']} {key} {r[key]} "
@@ -2743,7 +2864,7 @@ def main() -> int:
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
     agc_launches, tiers = _timed("8 agc path", phase_agc_path)
     h02_launches, h02_tiers = _timed("9 h02 alp", phase_h02_alp)
-    _timed("10 qp-admm path", phase_qpadmm_path)
+    admm_row = _timed("10 qp-admm path", phase_qpadmm_path)
     _timed("11 full lp", phase_full_lp)
     _timed("12 multi-snr", phase_multi_snr)
     _timed("13 apps", phase_apps)
@@ -2841,6 +2962,11 @@ def main() -> int:
             if "device_ms" in row:
                 entry["device_ms"] = row["device_ms"]
         kernels.append(entry)
+    kernels.append({"name": "admm_iterate", "route": "cuda",
+                    "source": "ldpc_tpu_torch/csrc/admm_iterate.cu",
+                    "replaces":
+                        "XLA fusion, ldpc_tpu/decoders/admm.py:184-262",
+                    **admm_row})
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"host_core": host_core}))
     print(json.dumps({"kernels": kernels}))
