@@ -7,7 +7,10 @@ printing one line before the next starts:
 1. device check: exits non-zero when ``torch.cuda.is_available()`` is false;
    prints the card, torch, CUDA and nvcc versions;
 2. kernel build: compiles ``ldpc_tpu_torch/csrc/*.cu`` with nvcc and prints
-   the seconds it took; then compiles the native host core
+   the seconds it took, ptxas's registers and spills per kernel, and the
+   QP-ADMM iteration kernel's tier at optimalH, H02 and the optimizer's
+   caps (threads and lanes a block, shared bytes a block, registers and
+   local bytes a thread, blocks per SM); then compiles the native host core
    (``ldpc_tpu_torch/_native/ldpc_host.cpp``) with g++ into
    ``build/ldpc_tpu_torch/libldpc_host.so`` and prints g++'s version, the
    seconds and the library's path;
@@ -169,7 +172,12 @@ printing one line before the next starts:
     equal the CPU's (``max_iter`` 1,000); (c) the final FER is recomputed
     exactly by a ``QPADMMDecoder`` of the best matrix on the same codewords
     and LLRs; (d) the state file is strict JSON that round-trips, at
-    generation 26,224, and its FER is not above the resumed one.
+    generation 26,224, and its FER is not above the resumed one. Then the
+    iteration kernel against its twin at the population's shape (the 8
+    incumbents x 256 lanes at their caps 1280 / 5120 / 32): the state
+    after 32 and 512 iterations equal on every pair but sum2 ties, device
+    ms per iteration of one 512-iteration launch with no pair stopping
+    (events), the twin's, and the bound on the real rows (not the caps).
 15. worlds of processes over ``torch.distributed``, each started by
     ``torchrun`` as ``chip_smoke.py --world DIR BACKEND`` (one JSON file of
     results per rank under ``build/chip_smoke_worlds/``): (a) a world of 1
@@ -284,6 +292,12 @@ ADMM_CHUNK = 64
 ADMM_STATE_ITERS = (32, 512)   # the kernel's state against its twin's
 ADMM_TIMED_ITERS = 512         # one launch, timed by events
 ADMM_TWIN_ITERS = 32
+# the kernel's tiers printed by the build phase: (label, (n_var, n_con, k))
+ADMM_SHAPES = (("optimalH", (700, 2320, 24)), ("H02", (1260, 4520, 72)),
+               ("the optimizer's caps", (1280, 5120, 32)),
+               ("caps of the third tier", (2048, 6144, 72)),
+               ("a 640 x 1280 code of row weight 6", (3200, 10240, 12)),
+               ("caps of 9,000 / 10,000", (9000, 10000, 24)))
 LP_TRIALS = 512
 LP_CPU_LANES = 32
 LP_X_TOL = 1e-4     # |x card - x CPU| after 2000 steps (GEMM sum order)
@@ -471,6 +485,17 @@ def phase_build():
           flush=True)
     print(f"[2 build] SASS of the kernels: "
           f"{_sass_mix(str(_build.LIB_PATH))}", flush=True)
+    from ldpc_tpu_torch.ops import admm_kernel
+    for label, shape in ADMM_SHAPES:
+        plan = admm_kernel.admm_plan(*shape)
+        occ = admm_kernel.admm_occupancy(*shape)
+        print(f"[2 build] admm_iterate at {label} (n_var, n_con, k) "
+              f"{shape}: tier {plan['tier']}, {plan['threads']} threads "
+              f"and {plan['lanes']} lanes a block, {plan['smem_bytes']} "
+              f"shared bytes a block, {occ['registers']} registers and "
+              f"{occ['local_bytes']} local bytes a thread, "
+              f"{occ['blocks_per_sm']} blocks per SM on {occ['sms']} SMs",
+              flush=True)
 
     from ldpc_tpu_torch import _native
     gxx = subprocess.run([_native.gxx_path(), "--version"],
@@ -1886,6 +1911,24 @@ def _same_counters(a, b) -> bool:
     return all(getattr(a, k) == getattr(b, k) for k in COUNTERS)
 
 
+def _admm_work(tables, lanes: int, iters: int):
+    """The work of one iteration of ``lanes`` lanes on each candidate of
+    the packed ``tables``, counted on the real rows (not the caps): the
+    float32 operations (each real slot's add, each variable's five other
+    operations, each constraint's thirteen) and the bytes of one
+    ``iters``-iteration launch over its iterations (q, v, z, yl read, v, z,
+    yl written, the compact tables read once)."""
+    ops = nbytes = 0
+    real = tables["real"].tolist()
+    slots = (tables["var_coef"] != 0).sum(dim=(1, 2)).tolist()
+    items = ((tables["var_info"] >> 32) & 0xffff).sum(dim=1).tolist()
+    for (nv, nc), n_slots, n_items in zip(real, slots, items):
+        ops += lanes * (n_slots + 5 * nv + 13 * nc)
+        nbytes += (4 * lanes * (3 * nv + 4 * nc)
+                   + 4 * n_items + 20 * nv + 8 * 4 * -(-nc // 4) + 4 * nc)
+    return ops, nbytes / iters
+
+
 def _admm_kernel_vs_twin(dec, llr):
     """Phase 10's check of QP-ADMM's iteration kernel against its twin on
     the card at the batch's width (``llr`` (B, n) on the card, ``dec`` at
@@ -1944,23 +1987,15 @@ def _admm_kernel_vs_twin(dec, llr):
                                *never, ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
     plain = _time_ms(lambda: twin(*start, tables, dec.alpha, dec.mu, *never,
                                   ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
-    # the work of one iteration: each variable's slot sums and its five
-    # other operations, each constraint's thirteen; the bytes a chunk moves
-    # (q, v, z, yl read, v, z, yl written, the packed tables read) over its
-    # iterations
-    slots = int((tables["var_code"] != 0).sum())
     n_var = dec.structure.n_var
-    ops = bsz * (slots + 5 * n_var + 13 * n_con)
-    nbytes = (4 * bsz * (2 * n_var + 2 * n_con + n_var + 2 * n_con)
-              + sum(tables[k].numel() * tables[k].element_size() for k in
-                    ("var_code", "var_len", "con_code", "b", "e")))
-    bound = _bound(nbytes / ADMM_TIMED_ITERS, ops, F32_OPS_PER_S)
+    ops, nbytes = _admm_work(tables, bsz, ADMM_TIMED_ITERS)
+    bound = _bound(nbytes, ops, F32_OPS_PER_S)
     print(f"[10 qp-admm path] admm_iterate at {bsz} lanes: "
           f"{ms:.6f} ms per iteration of device time (one "
           f"{ADMM_TIMED_ITERS}-iteration launch, events), twin "
           f"{plain:.6f} ms ({ADMM_TWIN_ITERS} iterations, events), bound "
           f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {ops} float32 "
-          f"operations per iteration; {nbytes} bytes per launch); "
+          f"operations per iteration; {nbytes:.0f} bytes per iteration); "
           f"kernel/bound {ms / bound['bound_ms']:.1f}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "library_ms": None, **bound,
@@ -2334,6 +2369,83 @@ class _OptimizerRun:
             self._host0, self._t0 = now, t
 
 
+def _admm_population_vs_twin(tables, llrs, n, alpha, mu, max_iter):
+    """Phase 14's check of the iteration kernel against its twin at the
+    population's shape (the incumbents at their caps, ``llrs`` (P, B, n)):
+    the state after ADMM_STATE_ITERS iterations from fresh pairs, equal on
+    every pair but sum2 ties (printed); then device ms per iteration of one
+    ADMM_TIMED_ITERS-iteration launch with no pair stopping (events), the
+    twin's over ADMM_TWIN_ITERS, and the bound on the real rows. Returns
+    the numbers for the kernels' JSON line."""
+    import torch
+    from ldpc_tpu_torch.ops import admm_kernel
+    from ldpc_tpu_torch.ops.admm_ref import admm_iterate_ref, stop_ties
+    kern, twin = admm_kernel.admm_iterate, admm_iterate_ref
+    packed = admm_kernel.pack_tables(tables)
+    p_count, bsz = llrs.shape[:2]
+    n_var, n_con = tables["e"].shape[1], tables["b"].shape[1]
+    q = torch.cat([llrs, llrs.new_zeros((p_count, bsz, n_var - n))],
+                  dim=2).transpose(0, 1).reshape(bsz, -1).contiguous()
+    start = (q, (q > 0).float(), q.new_zeros((bsz, p_count * n_con)),
+             q.new_zeros((bsz, p_count * n_con)),
+             torch.zeros((bsz, p_count), dtype=torch.bool, device=q.device),
+             torch.zeros((bsz, p_count), dtype=torch.int32, device=q.device))
+    args = (packed, alpha, mu, 1e-5, max_iter)
+    err = 0.0
+    for iters in ADMM_STATE_ITERS:
+        t0 = time.perf_counter()
+        got = kern(*(t.clone() for t in start), *args, iters)
+        want = twin(*start, *args, iters)
+        ties, others = stop_ties(start, got, want, *args[:4], kern, twin)
+        keep = torch.ones((bsz, p_count), dtype=torch.bool, device=q.device)
+        for lane, cand, *_ in ties:
+            keep[lane, cand] = False
+        same = {}
+        for key, a, b in zip(("v", "z", "yl", "done", "it"), got, want):
+            a = a.view(bsz, p_count, -1)[keep]
+            b = b.view(bsz, p_count, -1)[keep]
+            same[key] = torch.equal(a, b)
+            if key in ("v", "z", "yl"):
+                err = max(err, float((a - b).abs().max()))
+        print(f"[14 optimizer] admm_iterate against its twin at the "
+              f"population's shape, {p_count} x {bsz} pairs, {iters} "
+              f"iterations (max_iter {max_iter}): equal outside ties "
+              f"{same}; pairs done {int(got[3].sum())}; sum2 ties {ties}; "
+              f"other differences {others}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if others or not all(same.values()):
+            raise AssertionError(f"admm_iterate differs from its twin at "
+                                 f"the population's shape: {same}, "
+                                 f"{others}")
+    never = (float("-inf"), 2 ** 31 - 1)
+    copies = [tuple(t.clone() for t in start) for _ in range(REPEATS + 1)]
+    ms = _time_ms(lambda: kern(*copies.pop(), packed, alpha, mu, *never,
+                               ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
+    plain = _time_ms(lambda: twin(*start, packed, alpha, mu, *never,
+                                  ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
+    ops, nbytes = _admm_work(packed, bsz, ADMM_TIMED_ITERS)
+    bound = _bound(nbytes, ops, F32_OPS_PER_S)
+    real = packed["real"].tolist()
+    print(f"[14 optimizer] admm_iterate at the population's shape, "
+          f"{p_count} x {bsz} pairs at caps (n_var, n_con) {(n_var, n_con)}, "
+          f"real {real}: {ms:.6f} ms per iteration of device time (one "
+          f"{ADMM_TIMED_ITERS}-iteration launch, events), twin "
+          f"{plain:.6f} ms ({ADMM_TWIN_ITERS} iterations, events), bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {ops} float32 "
+          f"operations per iteration on the real rows; {nbytes:.0f} bytes "
+          f"per iteration); kernel/bound {ms / bound['bound_ms']:.1f}",
+          flush=True)
+    return {"population_ms": ms, "population_plain_ms": plain,
+            "population_bound_ms": bound["bound_ms"],
+            "population_bound_by": bound["bound_by"],
+            "population_max_abs_err": err,
+            "population_shape": f"{p_count} x {bsz} pairs, the state "
+                                f"file's incumbents at caps ({n_var}, "
+                                f"{n_con}), real {real}, alpha {alpha}, mu "
+                                f"{mu}, -3 dB, ms per iteration of a "
+                                f"{ADMM_TIMED_ITERS}-iteration launch"}
+
+
 def phase_optimizer():
     import shutil
     import numpy as np
@@ -2511,6 +2623,8 @@ def phase_optimizer():
           f"decode {admm_kernel.ITERATE_LAUNCHES - launches0}); lanes done "
           f"after {OPT_CHUNK} iterations: "
           f"{int((out.iterations < OPT_CHUNK).sum())}", flush=True)
+    return _admm_population_vs_twin(tables_dev, llrs, n, cfg.admm_alpha,
+                                    cfg.admm_mu, cfg.admm_max_iter)
 
 
 def _launch(cmd, timeout):
@@ -2868,7 +2982,7 @@ def main() -> int:
     _timed("11 full lp", phase_full_lp)
     _timed("12 multi-snr", phase_multi_snr)
     _timed("13 apps", phase_apps)
-    _timed("14 optimizer", phase_optimizer)
+    admm_row.update(_timed("14 optimizer", phase_optimizer))
     _timed("15 worlds", phase_worlds)
     host_core = _timed("16 native", phase_native)
     head = rows[-3.0]

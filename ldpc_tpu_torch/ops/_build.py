@@ -127,12 +127,13 @@ def load() -> ctypes.CDLL:
             lib.ldpc_ipm_step_len.restype = i
             lib.ldpc_ipm_update.argtypes = [p] * 15 + [i, i, i, f, f, p]
             lib.ldpc_ipm_update.restype = i
-            lib.ldpc_admm_iterate.argtypes = [p] * 14 + [i] * 5 + [f] + [
-                i] * 4 + [p]
+            lib.ldpc_admm_iterate.argtypes = [p] * 17 + [i] * 5 + [f] + [
+                i] * 5 + [p]
             lib.ldpc_admm_iterate.restype = i
-            lib.ldpc_admm_iterate_plan.argtypes = [i, i,
-                                                   ctypes.POINTER(i)]
-            lib.ldpc_admm_iterate_plan.restype = i
+            for name in ("ldpc_admm_iterate_plan",
+                         "ldpc_admm_iterate_occupancy"):
+                getattr(lib, name).argtypes = [i, i, i, ctypes.POINTER(i)]
+                getattr(lib, name).restype = i
             lib.ldpc_smem_optin_limit.argtypes = [i]
             lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]

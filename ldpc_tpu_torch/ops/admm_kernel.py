@@ -8,10 +8,11 @@ the device of ``q``: a CPU tensor goes to the plain twin
 :func:`.admm_ref.admm_iterate_ref`, a CUDA tensor to the kernel, anything
 else raises; nothing falls back. On CUDA it checks the state (dtypes,
 shapes, contiguity, device), takes the launch layout from
-:func:`admm_plan` (which raises for a pair too large for one block),
-packs the tables (:func:`pack_tables`, unless given packed) and launches
-once on the current stream without synchronising: every pair runs to its
-own stop or to ``iters`` inside the launch, and the host reads nothing.
+:func:`admm_plan` (a tier by the tables' shape, which raises for one
+that fits no tier), packs the tables (:func:`pack_tables`, unless given
+packed) and launches once on the current stream without synchronising:
+every pair runs to its own stop or to ``iters`` inside the launch, and the
+host reads nothing (the pairs' queue is a zeroed tensor of P counters).
 The kernel updates v, z, yl, done and it in place and the wrapper returns
 them; the twin returns new tensors. Callers use the returned state either
 way.
@@ -27,30 +28,94 @@ from .admm_ref import CHECK_EVERY, admm_iterate_ref, lane_param
 from .gemv_kernel import _launch
 
 ITERATE_LAUNCHES = 0
-THREADS = 256          # kThreads of the source
 MAX_SMEM = 232448      # the H100's opt-in shared memory per block
 MAX_INDEX = 32766      # an index + 1 must fit an int16 code
-BAD = -32768           # the code of an entry outside the kernel's contract
-PACKED = ("var_code", "var_len", "con_code")
+MAX_LEN = 511          # slots a variable in a register tier
+MAX_SLOTS = 32767      # slots a variable in any tier
+BAD = -32768           # the slot code of an entry outside the contract
+CSR_BAD = -1           # the same in the compact copy (all ones)
+SIGN = 0x8000          # a constraint code's sign bit: coefficient -1
+RUN = 1 << 31          # a variable item that covers a quad of slots
+LEN_SHIFT, TRAIL_BIT, VAR0_BIT = 32, 48, 49   # var_info's fields
+# (threads and lanes per block, variable positions and constraint quads
+# per thread, blocks per SM the registers are bounded for, tables left in
+# device memory), as kTiers of the source
+TIERS = ((256, 2, 3, 5, 2, False), (512, 2, 3, 5, 1, False),
+         (512, 1, 8, 5, 1, False), (512, 1, 0, 16, 1, True))
+PACKED = ("var_csr", "var_info", "var_pos", "con_code4", "real")
 
-__all__ = ["ITERATE_LAUNCHES", "admm_iterate", "admm_plan", "pack_tables"]
+__all__ = ["ITERATE_LAUNCHES", "admm_iterate", "admm_occupancy", "admm_plan",
+           "pack_tables"]
 
 
-def admm_plan(n_var: int, n_con: int) -> dict:
-    """The kernel's launch layout for pairs of ``n_var`` variables and
-    ``n_con`` constraints, as ``csrc/admm_iterate.cu`` computes it: one
-    block of ``threads`` per pair, its q, v and inv_coef and its t, z and yl
-    in ``smem_bytes`` of shared memory. Raises ``ValueError`` when a pair
-    does not fit one block (at most 227 KB: n_var + n_con up to about
-    19,370) or an index does not fit the int16 codes."""
-    smem = 4 * (3 * n_var + 3 * n_con + THREADS // 32)
-    if (n_var < 1 or n_con < 1 or max(n_var, n_con) > MAX_INDEX
-            or smem > MAX_SMEM):
-        raise ValueError(f"admm_plan: a pair of {n_var} variables and "
-                         f"{n_con} constraints does not fit the kernel "
-                         f"({smem} shared bytes of at most {MAX_SMEM}; "
-                         f"indices below {MAX_INDEX})")
-    return {"threads": THREADS, "smem_bytes": smem}
+def csr_capacity(n_var: int, n_con: int, k: int) -> int:
+    """Items of a candidate's compact variable table (``var_csr``): at
+    most one a slot, k a variable in groups of 32, and at most the real
+    slots (three a constraint) plus what the degree-sorted groups leave
+    empty."""
+    cap = min(k * (-(-n_var // 32) * 32), 3 * n_con + 64 * k)
+    return -(-cap // 8) * 8
+
+
+def _smem(threads: int, lanes: int, glob: bool, n_var: int, n_con: int,
+          k: int) -> int:
+    nq = -(-n_con // 4)
+    state = 4 * (-(-lanes * (n_var + 1) // 4) * 4 + 4 * lanes * (nq + 1)
+                 + 4 * nq + threads + 128 + 16)
+    return state if glob else (state + 32 * nq
+                               + 4 * csr_capacity(n_var, n_con, k))
+
+
+def admm_plan(n_var: int, n_con: int, k: int) -> dict:
+    """The kernel's launch layout for pairs of ``n_var`` variables,
+    ``n_con`` constraints and ``k`` slots a variable (the tables' shape,
+    caps included), as ``csrc/admm_iterate.cu`` computes it: the first tier
+    of ``TIERS`` whose block fits in ``smem_bytes`` of at most 227 KB (v and
+    t of the lanes, b, the threads' parts of sum2 and, but in the global
+    tier, the compact tables) and whose rows cover the shape: a register
+    tier's ``threads`` cover the variables with ``rv`` positions each and
+    the constraints' quads with ``rq`` quads a thread of each of the
+    ``lanes`` lanes, for up to ``MAX_LEN`` slots a variable; the global
+    tier (``global``: the tables read from device memory, the state out of
+    registers) takes any number of variables and up to ``rq`` quads a
+    thread. ``blocks`` is the blocks per SM the registers are bounded for.
+    Raises ``ValueError`` when no tier fits or an index or a slot count
+    does not fit the codes."""
+    nq = -(-n_con // 4)
+    fits = (0 < n_var <= MAX_INDEX and 0 < n_con <= MAX_INDEX
+            and 0 < k <= MAX_SLOTS)
+    for tier, (threads, lanes, rv, rq, blocks, glob) in enumerate(TIERS):
+        if not fits:
+            break
+        smem = _smem(threads, lanes, glob, n_var, n_con, k)
+        rows = (nq <= rq * threads if glob else
+                k <= MAX_LEN and n_var <= rv * threads
+                and nq <= rq * threads // lanes)
+        if rows and smem <= MAX_SMEM:
+            return {"threads": threads, "smem_bytes": smem, "lanes": lanes,
+                    "tier": tier, "rv": rv, "rq": rq, "blocks": blocks,
+                    "global": glob,
+                    "csr_cap": csr_capacity(n_var, n_con, k)}
+    raise ValueError(f"admm_plan: pairs of {n_var} variables, {n_con} "
+                     f"constraints and {k} slots a variable do not fit the "
+                     f"kernel ({MAX_SMEM} shared bytes a block for v, t "
+                     f"and b; indices below {MAX_INDEX}, slots up to "
+                     f"{MAX_SLOTS})")
+
+
+def admm_occupancy(n_var: int, n_con: int, k: int) -> dict:
+    """What the current CUDA device makes of :func:`admm_plan`'s tier
+    (``ldpc_admm_iterate_occupancy``): blocks per SM, SMs, registers and
+    local (spilled) bytes a thread. Builds the kernels; needs a card."""
+    import ctypes
+
+    from . import _build
+    out = (ctypes.c_int * 4)()
+    code = _build.load().ldpc_admm_iterate_occupancy(n_var, n_con, k, out)
+    if code != 0:
+        raise RuntimeError(f"admm_occupancy: CUDA error {code}")
+    return dict(zip(("blocks_per_sm", "sms", "registers", "local_bytes"),
+                    out))
 
 
 def _codes(idx: torch.Tensor, coef: torch.Tensor, pad: int) -> torch.Tensor:
@@ -66,24 +131,159 @@ def _codes(idx: torch.Tensor, coef: torch.Tensor, pad: int) -> torch.Tensor:
     return code.to(torch.int16)
 
 
+def _int(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Signed ``bits``-bit integers of bit patterns held as int64 values in
+    [-1, 2 ** bits)."""
+    dtype = torch.int16 if bits == 16 else torch.int32
+    return torch.where(x >= 1 << (bits - 1), x - (1 << bits), x).to(dtype)
+
+
+def _last(flags: torch.Tensor) -> torch.Tensor:
+    """(P,) one past the last True of (P, n) ``flags`` (0 for none)."""
+    n = flags.shape[1]
+    pos = torch.arange(1, n + 1, dtype=torch.int64, device=flags.device)
+    return (flags.to(torch.int64) * pos).amax(dim=1)
+
+
 def pack_tables(tables: dict) -> dict:
     """``tables`` (as :func:`admm_iterate`'s) with the kernel's packed copy
-    added: ``var_code`` (P, k, n_var) and ``con_code`` (P, 3, n_con) int16,
-    slot-major (:func:`_codes`), and ``var_len`` (P, n_var) int16, each
-    variable's slots up to its last real one (at least 1). Plain tensor
-    ops on the tables' device; the host reads nothing. The kernel traps on
-    a ``BAD`` code."""
+    added. Plain tensor ops on the tables' device; the host reads nothing.
+
+    From the tables' slot codes (:func:`_codes`: +(index + 1) for
+    coefficient +1, -(index + 1) for -1, 0 for padding, ``BAD`` for
+    anything else) and each variable's ``var_len``, its slots up to its
+    last real one (at least 1), the compact copy the kernel reads:
+
+    * ``real`` (P, 2) int32: the real variables and constraints. The
+      trailing rows whose codes are all 0 (and, for a constraint, whose b
+      is +0) and to which no real row refers are padding; row 0 is always
+      real;
+    * ``var_pos`` (P, n_var) int32: the order in which the threads own the
+      variables, a permutation: the real ones by ``var_len`` descending
+      (ties by index), then the padding ones in order;
+    * ``var_csr`` (P, ``csr_capacity``) int32: each real variable's first
+      ``var_len`` slots as 32-bit items in slot order: four slots that
+      name the constraints 4g ... 4g + 3 in turn are one item, ``RUN`` | g
+      | their four signs << 16; any other slot is one item, its
+      constraint | sign << 16, a padding slot the zero row 4 ceil(n_con /
+      4); ``CSR_BAD`` for a ``BAD`` code. Laid out in groups of 32
+      positions, item-major within a group, each group as long as its
+      longest variable; an overflow writes ``CSR_BAD``;
+    * ``var_info`` (P, n_var) int64 by position: the offset of its item 0
+      | its items << 32 | (``var_len`` < k) << 48 | (it is variable 0) <<
+      49;
+    * ``con_code4`` (P, 4 ceil(n_con / 4), 4) int16: each constraint's
+      three codes over the variables' positions (| SIGN for -1, the zero
+      row ``n_var`` for padding, ``CSR_BAD`` for ``BAD``), and in the
+      fourth column of row 4q a flag: 1 when the quad's four rows name the
+      same three rows slot by slot, + 2 when their signs are also the
+      cascade's (-1 in every slot of row i < 3 but slot i, none in row
+      3); rows past n_con are 0.
+
+    The kernel traps on a ``CSR_BAD`` code."""
     var_con, con_var = tables["var_con"], tables["con_var"]
-    n_var, k = var_con.shape[1:]
+    p_count, n_var, k = var_con.shape
     n_con = con_var.shape[1]
-    var_code = _codes(var_con, tables["var_coef"], n_con)
-    slots = torch.arange(1, k + 1, dtype=torch.int32, device=var_con.device)
+    nq = -(-n_con // 4)
+    dev = var_con.device
+    i64 = torch.int64
+    var_code = _codes(var_con, tables["var_coef"], n_con)      # (P, nv, k)
+    con_code = _codes(con_var, tables["con_coef"], n_var)      # (P, nc, 3)
+    slots = torch.arange(1, k + 1, dtype=torch.int32, device=dev)
     var_len = ((var_code != 0) * slots).amax(dim=-1).clamp_min(1)
+
+    # real counts: past the last row with a nonzero code (or b), and past
+    # every index a real slot names
+    vc, cc = var_code.to(i64), con_code.to(i64)
+    named_c = torch.where((vc != 0) & (vc != BAD), vc.abs(), 0)
+    named_v = torch.where((cc != 0) & (cc != BAD), cc.abs(), 0)
+    b_set = (tables["b"] != 0) | torch.signbit(tables["b"])
+    nv_real = torch.maximum(_last((var_code != 0).any(dim=-1)),
+                            named_v.flatten(1).amax(dim=1)).clamp_min(1)
+    nc_real = torch.maximum(_last((con_code != 0).any(dim=-1) | b_set),
+                            named_c.flatten(1).amax(dim=1)).clamp_min(1)
+
+    # the owners' order
+    idx = torch.arange(n_var, dtype=i64, device=dev).expand(p_count, n_var)
+    real_pos = idx < nv_real[:, None]       # real variables, real positions
+    lens = var_len.to(i64)
+    key = torch.where(real_pos, (k - lens) * n_var + idx,
+                      (k + 1) * n_var + idx)
+    var_pos = torch.argsort(key, dim=1)                        # pos -> var
+    rank = torch.empty_like(var_pos).scatter_(1, var_pos, idx)  # var -> pos
+    len_pos = torch.gather(lens, 1, var_pos)
+
+    # each position's items: quads of slots, and single slots
+    code = torch.gather(vc, 1, var_pos[:, :, None].expand(p_count, n_var, k))
+    s = torch.arange(k, dtype=i64, device=dev)
+    in_row = s < len_pos[:, :, None]
+    real = (code != 0) & (code != BAD)
+    row, neg = code.abs() - 1, (code < 0).to(i64)
+
+    def ahead(x, j, fill):
+        return torch.cat([x[..., j:], x.new_full(x.shape[:-1] + (j,), fill)],
+                         dim=-1)
+    start = real & (row % 4 == 0)
+    for j in range(1, 4):
+        start &= ahead(real, j, False) & (ahead(row, j, -1) == row + j)
+    covered = start.clone()
+    for j in range(1, 4):
+        covered |= torch.cat([start.new_zeros(start.shape[:-1] + (j,)),
+                              start[..., :-j]], dim=-1)
+    is_item = in_row & (start | ~covered)
+    signs = neg + 2 * ahead(neg, 1, 0) + 4 * ahead(neg, 2, 0) \
+        + 8 * ahead(neg, 3, 0)
+    single = torch.where(code == 0, 4 * nq, row | (neg << 16))
+    item = torch.where(start, RUN | (row // 4) | (signs << 16), single)
+    item = torch.where(code == BAD, (1 << 32) - 1, item)
+    n_items = is_item.sum(dim=-1)                              # (P, nv)
+    order = torch.cumsum(is_item.to(i64), dim=-1) - 1
+
+    # the groups of 32 positions, each as long as its longest variable
+    groups = -(-n_var // 32)
+    glen = torch.zeros((p_count, groups * 32), dtype=i64, device=dev)
+    glen[:, :n_var] = torch.where(real_pos, n_items, 0)
+    width = glen.view(p_count, groups, 32).amax(dim=2) * 32
+    goff = torch.cumsum(width, dim=1) - width
+    base = (goff.repeat_interleave(32, dim=1)[:, :n_var]
+            + torch.arange(n_var, device=dev) % 32)
+    cap = csr_capacity(n_var, n_con, k)
+    at = base[:, :, None] + 32 * order
+    keep = is_item & real_pos[:, :, None] & (at < cap)
+    at = torch.where(keep, at, cap)
+    csr = torch.zeros((p_count, cap + 1), dtype=i64, device=dev)
+    csr.scatter_(1, at.flatten(1), item.flatten(1))
+    csr = csr[:, :cap].contiguous()
+    csr[:, 0] = torch.where(width.sum(dim=1) > cap, (1 << 32) - 1,
+                            csr[:, 0])
+
+    info = (torch.where(real_pos, base, 0) | (n_items << LEN_SHIFT)
+            | ((len_pos < k).to(i64) << TRAIL_BIT)
+            | ((var_pos == 0).to(i64) << VAR0_BIT))
+
+    # the constraints' codes over the positions, whole quads, and the
+    # quads whose rows name the same variables
+    crow = torch.gather(rank, 1, (cc.abs() - 1).clamp(0, n_var - 1)
+                        .flatten(1)).view_as(cc)
+    ccode = torch.where(cc < 0, crow | SIGN, crow)
+    ccode = torch.where(cc == 0, n_var, ccode)
+    ccode = torch.where(cc == BAD, 0xffff, ccode)
+    con4 = torch.zeros((p_count, 4 * nq, 4), dtype=i64, device=dev)
+    con4[:, :n_con, :3] = ccode
+    rows4 = (con4[:, :, :3] & 0x7fff).view(p_count, nq, 4, 3)
+    whole = torch.arange(4 * nq, device=dev).view(nq, 4) < n_con
+    same = (rows4 == rows4[:, :, :1]).all(dim=-1).all(dim=-1) \
+        & whole.all(dim=-1)
+    negs = (con4[:, :, :3] & SIGN).view(p_count, nq, 4, 3) != 0
+    i, j = torch.arange(4, device=dev)[:, None], torch.arange(3, device=dev)
+    cascade = same & (negs == ((i != j) & (i < 3))).all(dim=-1).all(dim=-1)
+    con4.view(p_count, nq, 4, 4)[:, :, 0, 3] = same.to(i64) + 2 * cascade
     return {**tables,
-            "var_code": var_code.transpose(1, 2).contiguous(),
-            "var_len": var_len.to(torch.int16).contiguous(),
-            "con_code": _codes(con_var, tables["con_coef"], n_var
-                               ).transpose(1, 2).contiguous()}
+            "var_csr": _int(csr, 32),
+            "var_info": info.contiguous(),
+            "var_pos": var_pos.to(torch.int32).contiguous(),
+            "con_code4": _int(con4, 16),
+            "real": torch.stack([nv_real, nc_real], dim=1).to(torch.int32)}
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -123,20 +323,23 @@ def admm_iterate(q, v, z, yl, done, it, tables, alpha, mu, eps_stop: float,
     bsz, p_count = done.shape
     if not all(key in tables for key in PACKED):
         tables = pack_tables(tables)
-    k, n_var = tables["var_code"].shape[1:]
-    n_con = tables["con_code"].shape[2]
-    plan = admm_plan(n_var, n_con)
-    i16, f32 = torch.int16, torch.float32
+    n_var, k = tables["var_con"].shape[1:]
+    n_con = tables["con_var"].shape[1]
+    plan = admm_plan(n_var, n_con, k)
+    i16, i32, f32 = torch.int16, torch.int32, torch.float32
     for name, t, dtype, shape in (
             ("q", q, f32, (bsz, p_count * n_var)),
             ("v", v, f32, (bsz, p_count * n_var)),
             ("z", z, f32, (bsz, p_count * n_con)),
             ("yl", yl, f32, (bsz, p_count * n_con)),
             ("done", done, torch.bool, (bsz, p_count)),
-            ("it", it, torch.int32, (bsz, p_count)),
-            ("var_code", tables["var_code"], i16, (p_count, k, n_var)),
-            ("var_len", tables["var_len"], i16, (p_count, n_var)),
-            ("con_code", tables["con_code"], i16, (p_count, 3, n_con)),
+            ("it", it, i32, (bsz, p_count)),
+            ("var_csr", tables["var_csr"], i32, (p_count, plan["csr_cap"])),
+            ("var_info", tables["var_info"], torch.int64, (p_count, n_var)),
+            ("var_pos", tables["var_pos"], i32, (p_count, n_var)),
+            ("con_code4", tables["con_code4"], i16,
+             (p_count, 4 * -(-n_con // 4), 4)),
+            ("real", tables["real"], i32, (p_count, 2)),
             ("b", tables["b"], f32, (p_count, n_con)),
             ("e", tables["e"], f32, (p_count, n_var))) + (
             () if sum2 is None else
@@ -144,12 +347,14 @@ def admm_iterate(q, v, z, yl, done, it, tables, alpha, mu, eps_stop: float,
         _check(name, t, dtype, shape, dev)
     alpha_l = lane_param(alpha, bsz, dev).reshape(-1).contiguous()
     mu_l = lane_param(mu, bsz, dev).reshape(-1).contiguous()
-    if bsz:
+    if bsz and int(iters) > 0:
+        queue = torch.zeros(p_count, dtype=i32, device=dev)
         _launch("admm_iterate", "ldpc_admm_iterate", q, v, z, yl, done, it,
-                tables["var_code"], tables["var_len"], tables["con_code"],
-                tables["b"], tables["e"], alpha_l, mu_l,
-                0 if sum2 is None else sum2, bsz, p_count, n_var, n_con, k,
-                float(eps_stop), int(max_iter), int(iters), plan["threads"],
-                plan["smem_bytes"])
+                tables["var_csr"], tables["var_info"], tables["var_pos"],
+                tables["con_code4"], tables["real"], tables["b"],
+                tables["e"], alpha_l, mu_l, 0 if sum2 is None else sum2,
+                queue, bsz, p_count, n_var, n_con, k, float(eps_stop),
+                int(max_iter), int(iters), plan["threads"],
+                plan["smem_bytes"], plan["lanes"])
         ITERATE_LAUNCHES += 1
     return v, z, yl, done, it

@@ -19,7 +19,15 @@ from 239239239, noise from the next seed), at QP-ADMM's defaults
   decode (few lanes stop that early), each by the host clock around a
   synchronised call, the median of three after a warm-up;
 * streamed cw/s at each of ``--widths`` (1,024, 2,048 and 4,096 lanes) on
-  ``--width-trials`` (8,192) trials.
+  ``--width-trials`` (8,192) trials;
+* the iteration kernel alone (``ops.admm_kernel.admm_iterate`` on packed
+  tables, which both trees have): device ms per iteration of one
+  ``KERNEL_ITERS``-iteration launch from fresh state with no pair stopping,
+  by CUDA events, the median of three after a warm-up, at the sweep's
+  ``--batch`` optimalH lanes and at the population's 8 x 256; and at
+  ``--batch`` lanes for each of ``TIER_SHAPES``: optimalH padded to caps
+  that put it in each of the kernel's tiers, and a 640 x 1280 code of
+  row weight 6 (``wide_code``, a cascade of 3,200 / 10,240 rows).
 
 Runs of one tree must give equal counters at every width and runner;
 prints one line per run and exits non-zero when they differ or a FER lies
@@ -53,12 +61,24 @@ from ldpc_tpu_torch.decoders.admm import (ADMMStructure,
 from ldpc_tpu_torch.harness.experiment import COUNTERS, run_experiment
 from ldpc_tpu_torch.harness.reference_data import (REF_FER_OPT, SNR_GRID,
                                                    Z_BOUND, z_score)
+from ldpc_tpu_torch.ops import admm_kernel
 
 SNR = -3.0
 BATCH = 1024
 POP_TRIALS = 256
 POP_ITERS = 1000
 POP_CHUNK = 64
+KERNEL_ITERS = 512
+# (label, caps) of the kernel's per-shape times: optimalH at its size and
+# padded into the second, third and global tier, then the wide code
+TIER_SHAPES = (("optimalH", {}),
+               ("optimalH@1280/5120/32",
+                dict(n_var_cap=1280, n_con_cap=5120, k_max_cap=32)),
+               ("optimalH@2048/6144/72",
+                dict(n_var_cap=2048, n_con_cap=6144, k_max_cap=72)),
+               ("optimalH@9000/10000/24",
+                dict(n_var_cap=9000, n_con_cap=10000, k_max_cap=24)),
+               ("wide 640x1280", {}))
 
 
 def _sync(dev) -> None:
@@ -101,6 +121,65 @@ def _population(dev, seed, trials):
                                   torch.Generator().manual_seed(seed), dev)
         llrs.append(noise_scales(SNR)[1] * transmit(cw, SNR, seed + 1, idx))
     return tables, torch.stack(llrs), hs[0].shape[1], caps
+
+
+def wide_code() -> np.ndarray:
+    """A 640 x 1280 quasi-cyclic code from a seed, column weight 3 and row
+    weight 6 (circulants of 160; block row i leaves out block columns 2i
+    and 2i + 1)."""
+    present = np.ones((4, 8), bool)
+    for i in range(4):
+        present[i, 2 * i:2 * i + 2] = False
+    shifts = np.random.default_rng(7).integers(0, 160, (4, 8))
+    return QCMatrix(160, present, shifts).to_dense()
+
+
+def _tier_ms(dev, seed, lanes) -> dict:
+    """Device ms per iteration (``_kernel_ms``) of ``lanes`` lanes at -3
+    dB for each of ``TIER_SHAPES``, keyed by label and the cascade's
+    (n_var, n_con, k)."""
+    out = {}
+    for label, caps in TIER_SHAPES:
+        h = (wide_code() if label.startswith("wide") else
+             read_pcm(str(bench.MATRIX)))
+        s = ADMMStructure.from_h(h, **caps)
+        tables = admm_kernel.pack_tables(
+            {k: torch.from_numpy(getattr(s, k))[None].to(dev)
+             for k in TABLES})
+        cw = gen_random_codewords(gf2_nullspace(h)[0], lanes,
+                                  torch.Generator().manual_seed(seed), dev)
+        llr = noise_scales(SNR)[1] * transmit(
+            cw, SNR, seed + 1, torch.arange(lanes, device=dev))
+        key = f"{label} {(s.n_var, s.n_con, s.var_con.shape[1])}"
+        out[key] = _kernel_ms(tables, llr[None], h.shape[1], 1.2, 0.55)
+    return out
+
+
+def _kernel_ms(tables, llrs, n, alpha, mu) -> float:
+    """Device ms per iteration of one KERNEL_ITERS-iteration launch of the
+    kernel on ``tables`` (packed) from fresh state of ``llrs`` (P, B, n),
+    no pair stopping; CUDA events, the median of three after a warm-up."""
+    p_count, bsz = llrs.shape[:2]
+    n_var, n_con = tables["e"].shape[1], tables["b"].shape[1]
+    q = torch.cat([llrs, llrs.new_zeros((p_count, bsz, n_var - n))],
+                  dim=2).transpose(0, 1).reshape(bsz, -1).contiguous()
+    fresh = (q, (q > 0).float(), q.new_zeros((bsz, p_count * n_con)),
+             q.new_zeros((bsz, p_count * n_con)),
+             torch.zeros((bsz, p_count), dtype=torch.bool, device=q.device),
+             torch.zeros((bsz, p_count), dtype=torch.int32, device=q.device))
+    times = []
+    for _ in range(4):
+        state = [t.clone() for t in fresh]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        admm_kernel.admm_iterate(*state, tables, alpha, mu, float("-inf"),
+                                 2 ** 31 - 1, KERNEL_ITERS)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / KERNEL_ITERS)
+    return statistics.median(times[1:])
 
 
 def main(argv=None) -> int:
@@ -161,10 +240,28 @@ def main(argv=None) -> int:
                   "chunk_iterations": POP_CHUNK}
     print(" ".join(f"{k} {v}" for k, v in population.items()), flush=True)
 
+    kernel = {}
+    if dev.type == "cuda":
+        llr = noise_scales(SNR)[1] * transmit(
+            cw[:args.batch], SNR, seed + 1,
+            torch.arange(args.batch, device=dev))
+        one = admm_kernel.pack_tables({k: getattr(dec, k)[None]
+                                       for k in TABLES})
+        kernel["optimalH_ms_per_iteration"] = _kernel_ms(
+            one, llr[None], h.shape[1], 1.2, 0.55)
+        kernel["optimalH_lanes"] = args.batch
+        kernel["population_ms_per_iteration"] = _kernel_ms(
+            admm_kernel.pack_tables(tables), llrs, n, 1.95, 0.5)
+        kernel["population_lanes"] = list(llrs.shape[:2])
+        kernel["iterations_a_launch"] = KERNEL_ITERS
+        kernel["shapes_ms_per_iteration"] = _tier_ms(dev, seed, args.batch)
+        print(" ".join(f"{k} {v}" for k, v in kernel.items()), flush=True)
+
     widths = [run("width", args.width_trials, w, True) for w in args.widths]
     if any(r["counters"] != widths[0]["counters"] for r in widths):
         bad.append("the widths differ in their counters")
     print(json.dumps({"admm_speed": rows, "population": population,
+                      "kernel": kernel,
                       "label": args.label, "snr": SNR,
                       "card": bench.card_stamp(dev)}), flush=True)
     for msg in bad:
