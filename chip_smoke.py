@@ -83,10 +83,14 @@ printing one line before the next starts:
    IPM step's two kernels (``csrc/ipm_step.cu``: the step lengths and the
    masked update, XLA fusions in JAX) against their twins
    (``ops/ipm_ref.py``) bit for bit at T = 128, 640 and 1408 (128 lanes,
-   n = 280; lanes with NaN and inf directions, all-positive directions,
-   ties, steps clamped to 1, steps past the box), each timed as a CUDA
-   graph of calls and by events beside its twin's eager ops (counted and
-   timed the same ways) and its bound (bytes over the HBM rate);
+   n = 280), at 256 lanes of T = 1408 and at H02's deepest tier (T = 2176,
+   n = 640; lanes with NaN and inf directions, all-positive directions,
+   ties, steps clamped to 1, steps past the box), each with its launch
+   plan (``ipm_step_plan``), timed as a CUDA graph of calls cold (inputs
+   rotated past the L2) and warm, and by events, beside its twin's eager
+   ops (counted and timed the same ways), its bound (bytes over the HBM
+   rate) and the launch floor: an empty kernel of the plan's grid timed
+   the same way;
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
    capacity 1408, the IPM as CUDA graphs, the default on CUDA), which
@@ -278,9 +282,11 @@ GAUSS_RAGGED = (63, 283)
 FIRST_GAUSS_MS = 0.226
 AGC_AGREE_MIN = 0.95
 AGC_BATCHED = 256
-# the IPM step's two kernels: tiers held to their twins, and the width
-IPM_TIERS = (128, 640, 1408)
-IPM_N = 280
+# the IPM step's two kernels: (lanes, T, n) held to their twins, the
+# path's tiers (optimalH) first, then 256 lanes and H02's deepest tier
+IPM_SHAPES = ((AGC_LANES, 128, 280), (AGC_LANES, 640, 280),
+              (AGC_LANES, AGC_CAP, 280), (2 * AGC_LANES, AGC_CAP, 280),
+              (AGC_LANES, 2176, H02_N))
 # phases 10-13: QP-ADMM (DEFAULT_BATCH["qp-admm"] = 1024, so 2048 trials
 # stream), Full LP, the fused multi-SNR BP run and the apps
 ADMM_SNR = -3.0
@@ -1245,17 +1251,17 @@ def _normal_tiers(a_buf, gen):
     return out, ragged
 
 
-def _ipm_case(t, gen):
-    """A Newton step's inputs at AGC-ALP's width: 128 lanes of interior
-    values and random directions at T rows and n = 280 columns, and
-    special lanes: NaN in dx (1) and in dy (2), infinite directions (3),
-    all-positive directions, so both steps are 1 (4), one ratio in many
+def _ipm_case(lanes, t, n, gen):
+    """A Newton step's inputs: ``lanes`` lanes of interior values and
+    random directions at T rows and n columns, and special lanes: NaN in
+    dx (1) and in dy (2), infinite directions (3), all-positive
+    directions, so both steps are 1 (4), one ratio in many
     places (5), directions so small that the steps clamp to 1 (6), steps
     past the box and the floors (7). Step lengths for the update drawn in
     [0, 1.2)."""
     import torch
     dev = torch.device("cuda")
-    lanes, n, inf = AGC_LANES, IPM_N, float("inf")
+    inf = float("inf")
 
     def pos(w):
         return torch.rand((lanes, w), generator=gen, device=dev) * 5.0 + 1e-3
@@ -1292,24 +1298,40 @@ def _ipm_case(t, gen):
 
 
 def _ipm_step_tiers(gen):
-    """Phase 7's IPM step kernels at each tier of IPM_TIERS: the step
+    """Phase 7's IPM step kernels at each shape of IPM_SHAPES: the step
     lengths and the masked update held to their twins bit for bit (NaN,
     inf, all-positive, tied, clamped lanes included), then timed as CUDA
-    graphs of calls (device time) and by events (with the host's launch),
-    beside the twins' ~50 and ~30 eager ops, counted and timed the same
-    ways. Bound: bytes (each input read once, each output written once)
-    over the HBM rate. Returns per-tier rows for each kernel."""
+    graphs of calls (device time) cold (rotating over copies of every
+    input that fill twice the L2: the bound's HBM bytes) and warm (the same
+    inputs each call, in L2 as on the solve's path, where the Newton step
+    has just written them), and by events (with the host's launch), beside
+    the twins' ~50 and ~30 eager ops (cold, counted and by events) and the
+    launch floor: an empty kernel of the same grid
+    (``ipm_kernel.empty_kernel``) as a CUDA graph of calls. Bound: bytes
+    (each input read once, each output written once, ``step_len_bytes`` /
+    ``update_bytes``) over the HBM rate. Returns per-shape rows for each
+    kernel."""
     import torch
-    from ldpc_tpu_torch.ops.ipm_kernel import ipm_step_len, ipm_update
+    from ldpc_tpu_torch.ops.ipm_kernel import (empty_kernel, ipm_step_len,
+                                               ipm_step_plan, ipm_update,
+                                               step_len_bytes, update_bytes)
     from ldpc_tpu_torch.ops.ipm_ref import ipm_step_len_ref, ipm_update_ref
 
     def same(a, b):
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+    def rotation(call, nbytes):
+        """``call`` and copies of its tensors that fill twice the L2."""
+        def clone(a):
+            return (tuple(u.clone() for u in a) if isinstance(a, tuple)
+                    else a.clone())
+        return [call] + [tuple(clone(a) for a in call)
+                         for _ in range(-(-2 * L2_BYTES // nbytes))]
+
     rows = {"ipm_step_len": [], "ipm_update": []}
-    lanes, n = AGC_LANES, IPM_N
-    for t in IPM_TIERS:
-        v, d, ap, ad = _ipm_case(t, gen)
+    dev = torch.device("cuda")
+    for lanes, t, n in IPM_SHAPES:
+        v, d, ap, ad = _ipm_case(lanes, t, n, gen)
         args = (v["s"], d["ds"], v["x"], d["dx"], v["w"], v["y"], d["dy"],
                 v["zl"], d["dzl"], v["zu"], d["dzu"])
         state = tuple(v[k] for k in ("x", "w", "s", "y", "zl", "zu", "ax"))
@@ -1325,36 +1347,45 @@ def _ipm_step_tiers(gen):
                    and same(got_u[2][1], state[2][1].clamp_min(1e-12))
                    and same(got_u[6][2], state[6][2])
                    and bool(torch.isfinite(got_u[0]).all()))
-        scratch = tuple(u.clone() for u in state)
+        plan = ipm_step_plan(lanes, t, n, all(
+            u.data_ptr() % 16 == 0 for u in (*args, *state, *dirs)))
+        floor_ms = _graph_ms(lambda: empty_kernel(plan, dev),
+                             [()] * WARM_CALLS)
         timed = {
-            "ipm_step_len": (
-                ipm_step_len, ipm_step_len_ref, args,
-                4 * lanes * (4 * t + 7 * n) + 8 * lanes),
-            "ipm_update": (
-                lambda *a: ipm_update(scratch, *a),
-                lambda *a: ipm_update_ref(state, *a), (dirs, ap, ad),
-                4 * lanes * (9 * t + 10 * n) + 8 * lanes)}
+            "ipm_step_len": (ipm_step_len, ipm_step_len_ref, args,
+                             step_len_bytes(lanes, t, n)),
+            "ipm_update": (ipm_update, ipm_update_ref,
+                           (tuple(u.clone() for u in state), dirs, ap, ad),
+                           update_bytes(lanes, t, n))}
         for (name, (kern, twin, call, nbytes)), ok in zip(timed.items(),
                                                           exact):
+            cold = rotation(call, nbytes)
             row = {"max_abs_err": 0.0, "library_ms": None, "t": t,
+                   "n": n, "lanes": lanes, "plan": plan,
+                   "floor_ms": floor_ms,
                    "shape": f"{lanes}x{t}x{n} f32 (rows x columns per lane)",
-                   "ms": _graph_ms(kern, [call] * WARM_CALLS),
-                   "plain_ms": _graph_ms(twin, [call] * WARM_CALLS),
+                   "ms": _graph_ms(kern, cold, COLD_ROUNDS),
+                   "warm_ms": _graph_ms(kern, [call] * WARM_CALLS),
+                   "plain_ms": _graph_ms(twin, cold, COLD_ROUNDS),
                    "events_ms": _time_ms(lambda: kern(*call)),
                    "plain_events_ms": _time_ms(lambda: twin(*call)),
                    "plain_launches": _launches(lambda: twin(*call)),
                    **_bound(nbytes, 0, F32_OPS_PER_S)}
-            print(f"[7 agc-kernels] {name} {row['shape']}: bit for bit with "
-                  f"its twin {ok} (special lanes {special}); device "
-                  f"{row['ms']:.5f} ms (CUDA graph), {row['events_ms']:.5f} "
-                  f"ms by events; twin {row['plain_launches']} eager ops, "
-                  f"{row['plain_ms']:.5f} ms device, "
+            del cold
+            print(f"[7 agc-kernels] {name} {row['shape']}, plan {plan}: "
+                  f"bit for bit with its twin {ok} (special lanes "
+                  f"{special}); device {row['ms']:.6f} ms cold, "
+                  f"{row['warm_ms']:.6f} ms warm (CUDA graphs; launch "
+                  f"floor {floor_ms:.6f}), {row['events_ms']:.5f} ms by "
+                  f"events; twin {row['plain_launches']} eager ops, "
+                  f"{row['plain_ms']:.5f} ms device cold, "
                   f"{row['plain_events_ms']:.5f} ms by events; bound "
-                  f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
-                  f"({row['bound_ms'] / row['ms']:.3f} of it)", flush=True)
+                  f"{row['bound_ms']:.6f} ms by {row['bound_by']} "
+                  f"({row['bound_ms'] / row['ms']:.3f} of the cold time)",
+                  flush=True)
             if not (ok and special):
                 raise AssertionError(f"{name} differs from its twin at "
-                                     f"T = {t}")
+                                     f"{row['shape']}")
             rows[name].append(row)
     return rows
 
@@ -1911,24 +1942,6 @@ def _same_counters(a, b) -> bool:
     return all(getattr(a, k) == getattr(b, k) for k in COUNTERS)
 
 
-def _admm_work(tables, lanes: int, iters: int):
-    """The work of one iteration of ``lanes`` lanes on each candidate of
-    the packed ``tables``, counted on the real rows (not the caps): the
-    float32 operations (each real slot's add, each variable's five other
-    operations, each constraint's thirteen) and the bytes of one
-    ``iters``-iteration launch over its iterations (q, v, z, yl read, v, z,
-    yl written, the compact tables read once)."""
-    ops = nbytes = 0
-    real = tables["real"].tolist()
-    slots = (tables["var_coef"] != 0).sum(dim=(1, 2)).tolist()
-    items = ((tables["var_info"] >> 32) & 0xffff).sum(dim=1).tolist()
-    for (nv, nc), n_slots, n_items in zip(real, slots, items):
-        ops += lanes * (n_slots + 5 * nv + 13 * nc)
-        nbytes += (4 * lanes * (3 * nv + 4 * nc)
-                   + 4 * n_items + 20 * nv + 8 * 4 * -(-nc // 4) + 4 * nc)
-    return ops, nbytes / iters
-
-
 def _admm_kernel_vs_twin(dec, llr):
     """Phase 10's check of QP-ADMM's iteration kernel against its twin on
     the card at the batch's width (``llr`` (B, n) on the card, ``dec`` at
@@ -1988,7 +2001,8 @@ def _admm_kernel_vs_twin(dec, llr):
     plain = _time_ms(lambda: twin(*start, tables, dec.alpha, dec.mu, *never,
                                   ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
     n_var = dec.structure.n_var
-    ops, nbytes = _admm_work(tables, bsz, ADMM_TIMED_ITERS)
+    ops, nbytes = admm_kernel.iteration_work(tables, bsz,
+                                              ADMM_TIMED_ITERS)
     bound = _bound(nbytes, ops, F32_OPS_PER_S)
     print(f"[10 qp-admm path] admm_iterate at {bsz} lanes: "
           f"{ms:.6f} ms per iteration of device time (one "
@@ -2423,7 +2437,8 @@ def _admm_population_vs_twin(tables, llrs, n, alpha, mu, max_iter):
                                ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
     plain = _time_ms(lambda: twin(*start, packed, alpha, mu, *never,
                                   ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
-    ops, nbytes = _admm_work(packed, bsz, ADMM_TIMED_ITERS)
+    ops, nbytes = admm_kernel.iteration_work(packed, bsz,
+                                              ADMM_TIMED_ITERS)
     bound = _bound(nbytes, ops, F32_OPS_PER_S)
     real = packed["real"].tolist()
     print(f"[14 optimizer] admm_iterate at the population's shape, "
@@ -3062,10 +3077,15 @@ def main() -> int:
                   f"launches, ~{on_path:.3f} ms on the path at phase 7's "
                   f"cold times per tier", flush=True)
         elif name.startswith("ipm_"):
-            # bit for bit at every tier; the times at the deepest tier,
-            # device time (CUDA graph), the other tiers' beside them
-            row = _worst_and_last(agc_rows[name])
-            entry.update({k: row[k] for k in keys}, shape=row["shape"],
+            # bit for bit at every shape; the times at the path's deepest
+            # tier, device time (CUDA graph), the other shapes' beside them
+            row = next(r for r in agc_rows[name]
+                       if (r["lanes"], r["t"], r["n"]) == (AGC_LANES,
+                                                           AGC_CAP, 280))
+            entry.update({k: row[k] for k in keys},
+                         shape=row["shape"] + ", cold L2, device time (CUDA "
+                         "graph)", warm_ms=row["warm_ms"],
+                         floor_ms=row["floor_ms"], plan=row["plan"],
                          events_ms=row["events_ms"],
                          plain_events_ms=row["plain_events_ms"],
                          plain_launches=row["plain_launches"],

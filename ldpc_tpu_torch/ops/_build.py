@@ -123,10 +123,14 @@ def load() -> ctypes.CDLL:
             lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.ldpc_gf2_gauss.restype = i
             f = ctypes.c_float
-            lib.ldpc_ipm_step_len.argtypes = [p] * 13 + [i, i, i, f, p]
+            lib.ldpc_ipm_step_len.argtypes = [p] * 13 + [i, i, i, f, i, i,
+                                                         p]
             lib.ldpc_ipm_step_len.restype = i
-            lib.ldpc_ipm_update.argtypes = [p] * 15 + [i, i, i, f, f, p]
+            lib.ldpc_ipm_update.argtypes = [p] * 15 + [i, i, i, f, f, i, i,
+                                                       p]
             lib.ldpc_ipm_update.restype = i
+            lib.ldpc_ipm_empty.argtypes = [i, i, p]
+            lib.ldpc_ipm_empty.restype = i
             lib.ldpc_admm_iterate.argtypes = [p] * 17 + [i] * 5 + [f] + [
                 i] * 5 + [p]
             lib.ldpc_admm_iterate.restype = i

@@ -45,7 +45,7 @@ TIERS = ((256, 2, 3, 5, 2, False), (512, 2, 3, 5, 1, False),
 PACKED = ("var_csr", "var_info", "var_pos", "con_code4", "real")
 
 __all__ = ["ITERATE_LAUNCHES", "admm_iterate", "admm_occupancy", "admm_plan",
-           "pack_tables"]
+           "iteration_work", "pack_tables"]
 
 
 def csr_capacity(n_var: int, n_con: int, k: int) -> int:
@@ -116,6 +116,24 @@ def admm_occupancy(n_var: int, n_con: int, k: int) -> dict:
         raise RuntimeError(f"admm_occupancy: CUDA error {code}")
     return dict(zip(("blocks_per_sm", "sms", "registers", "local_bytes"),
                     out))
+
+
+def iteration_work(tables: dict, lanes: int, iters: int) -> tuple:
+    """(operations, bytes): the work of one iteration of ``lanes`` lanes on
+    each candidate of the packed ``tables``, counted on the real rows (not
+    the caps): the float32 operations (each real slot's add, each
+    variable's five other operations, each constraint's thirteen) and the
+    bytes of one ``iters``-iteration launch over its iterations (q, v, z,
+    yl read, v, z, yl written, the compact tables read once)."""
+    ops = nbytes = 0
+    real = tables["real"].tolist()
+    slots = (tables["var_coef"] != 0).sum(dim=(1, 2)).tolist()
+    items = ((tables["var_info"] >> 32) & 0xffff).sum(dim=1).tolist()
+    for (nv, nc), n_slots, n_items in zip(real, slots, items):
+        ops += lanes * (n_slots + 5 * nv + 13 * nc)
+        nbytes += (4 * lanes * (3 * nv + 4 * nc)
+                   + 4 * n_items + 20 * nv + 8 * 4 * -(-nc // 4) + 4 * nc)
+    return ops, nbytes / iters
 
 
 def _codes(idx: torch.Tensor, coef: torch.Tensor, pad: int) -> torch.Tensor:

@@ -5,8 +5,9 @@ They have no Pallas counterpart: in ``ldpc_tpu/ops/ipm_solver.py`` XLA fuses
 this elementwise work (``:222-267``). Each wrapper picks by the device of its
 first tensor: a CPU tensor goes to its plain twin in :mod:`.ipm_ref`, a CUDA
 tensor to the kernel, anything else raises; nothing falls back. On CUDA a
-wrapper checks its inputs (float32, contiguous, the shapes of one solve) and
-launches on the current stream without synchronising.
+wrapper checks its inputs (float32, contiguous, the shapes of one solve),
+takes the launch layout of :func:`ipm_step_plan` and launches on the current
+stream without synchronising.
 
 ``ipm_update`` on CUDA writes the new state into the state's own tensors
 and returns them; its twin returns new tensors. Callers use the returned
@@ -19,13 +20,64 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .gemv_kernel import _launch
 from .ipm_ref import FLOOR, FRAC, ipm_step_len_ref, ipm_update_ref
 
 STEP_LEN_LAUNCHES = 0
 UPDATE_LAUNCHES = 0
 
-__all__ = ["ipm_step_len", "ipm_update"]
+MAX_THREADS = 1024   # a block
+PER_THREAD = 4       # floats of each of a lane's arrays a thread holds a pass
+
+__all__ = ["empty_kernel", "ipm_step_len", "ipm_step_plan", "ipm_update",
+           "step_len_bytes", "update_bytes"]
+
+
+def ipm_step_plan(bsz: int, t: int, n: int, aligned: bool) -> dict:
+    """The launch layout of both kernels for ``bsz`` lanes of ``t`` rows
+    and ``n`` columns, as ``csrc/ipm_step.cu`` takes it (its entry points
+    refuse a layout that is not legal for the shape and pointers):
+
+    * ``vec``: 4 (16-byte loads and stores) when ``aligned`` (every array
+      starts on 16 bytes) and T and n are multiples of 4, else 1;
+    * ``threads``: threads of the lane's block, the fewest warps (up to
+      ``MAX_THREADS``) that give each thread ``PER_THREAD`` floats of each
+      array;
+    * ``passes``: the passes of ``PER_THREAD * threads`` floats a thread
+      makes over its lane (1 up to T and n of 4096);
+    * ``blocks``: the grid, one block a lane.
+
+    Raises ``ValueError`` for an empty shape."""
+    if bsz < 1 or t < 1 or n < 1:
+        raise ValueError(f"ipm_step_plan: empty shape, {bsz} lanes of "
+                         f"{t} rows and {n} columns")
+    width = max(t, n)
+    threads = min(MAX_THREADS, 32 * -(-width // (32 * PER_THREAD)))
+    vec = 4 if aligned and t % 4 == 0 and n % 4 == 0 else 1
+    return {"vec": vec, "threads": threads,
+            "passes": -(-width // (PER_THREAD * threads)), "blocks": bsz}
+
+
+def step_len_bytes(bsz: int, t: int, n: int) -> int:
+    """Bytes the step lengths must move: s, ds, y, dy (B, T) and x, dx, w,
+    zl, dzl, zu, dzu (B, n) read once, ap and ad (B,) written once."""
+    return 4 * bsz * (4 * t + 7 * n) + 8 * bsz
+
+
+def update_bytes(bsz: int, t: int, n: int) -> int:
+    """Bytes the update must move: ax, adx, s, ds, y, dy (B, T), x, dx, zl,
+    dzl, zu, dzu (B, n) and ap, ad (B,) read once; ax, s, y (B, T) and x,
+    w, zl, zu (B, n) written once."""
+    return 4 * bsz * (9 * t + 10 * n) + 8 * bsz
+
+
+def _aligned(tensors) -> bool:
+    return all(v.data_ptr() % 16 == 0 for v in tensors)
+
+
+def _layout(plan: dict) -> tuple:
+    return plan["vec"], plan["threads"]
 
 
 def _on_cpu(fn: str, v: torch.Tensor) -> bool:
@@ -54,6 +106,39 @@ def _check(fn: str, named, bsz: int, t: int, n: int,
             raise ValueError(f"{fn}: {name} must be contiguous")
 
 
+def _step_len_launch(arrays, ap, ad, frac: float, plan: dict) -> None:
+    """One launch of the step-length kernel on checked CUDA ``arrays``
+    (s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu) into ``ap``, ``ad`` by
+    ``plan``."""
+    (bsz, t), n = arrays[0].shape, arrays[2].shape[1]
+    _launch("ipm_step_len", "ldpc_ipm_step_len", *arrays, ap, ad, bsz, t, n,
+            float(frac), *_layout(plan))
+
+
+def _update_launch(state, dirs, ap, ad, plan: dict) -> None:
+    """One launch of the update kernel on checked CUDA ``state`` and
+    ``dirs`` by ``plan``, in place."""
+    (bsz, t), n = state[2].shape, state[0].shape[1]
+    # the floor and the top of the box as float32, as torch converts
+    # clamp's scalar bounds (1.0 - 1e-12 rounds to 1.0f)
+    _launch("ipm_update", "ldpc_ipm_update", *state, *dirs, ap, ad, bsz, t,
+            n, FLOOR, 1.0 - FLOOR, *_layout(plan))
+
+
+def empty_kernel(plan: dict, device: torch.device) -> None:
+    """An empty kernel of ``plan``'s grid and blocks on the current stream
+    of ``device``: the launch floor that the two kernels are timed against.
+    Needs a card."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.ldpc_ipm_empty(plan["blocks"], plan["threads"], stream)
+    if code != 0:
+        msg = lib.ldpc_cuda_error_string(code).decode()
+        raise RuntimeError(f"empty_kernel launch failed: CUDA error {code} "
+                           f"({msg})")
+
+
 def ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
                  frac: float = FRAC):
     """(ap, ad), each (B,): the primal step length keeping s, x and w
@@ -72,11 +157,12 @@ def ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
         ("w", w, "n"), ("y", y, "T"), ("dy", dy, "T"), ("zl", zl, "n"),
         ("dzl", dzl, "n"), ("zu", zu, "n"), ("dzu", dzu, "n")),
         bsz, t, n, s.device)
+    arrays = (s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu)
+    plan = ipm_step_plan(bsz, t, n, _aligned(arrays)) if bsz else None
     ap = torch.empty((bsz,), dtype=torch.float32, device=s.device)
     ad = torch.empty_like(ap)
     if bsz:
-        _launch("ipm_step_len", "ldpc_ipm_step_len", s, ds, x, dx, w, y, dy,
-                zl, dzl, zu, dzu, ap, ad, bsz, t, n, float(frac))
+        _step_len_launch(arrays, ap, ad, frac, plan)
         STEP_LEN_LAUNCHES += 1
     return ap, ad
 
@@ -107,10 +193,7 @@ def ipm_update(state, dirs, ap, ad):
             raise ValueError(f"ipm_update: {name} must be a contiguous "
                              f"float32 ({bsz},) tensor on {x.device}")
     if bsz:
-        # the floor and the top of the box as float32, as torch converts
-        # clamp's scalar bounds (1.0 - 1e-12 rounds to 1.0f)
-        _launch("ipm_update", "ldpc_ipm_update", x, w, s, y, zl, zu, ax, dx,
-                dy, ds, dzl, dzu, adx, ap, ad, bsz, t, n, FLOOR,
-                1.0 - FLOOR)
+        _update_launch(state, dirs, ap, ad,
+                       ipm_step_plan(bsz, t, n, _aligned((*state, *dirs))))
         UPDATE_LAUNCHES += 1
     return state

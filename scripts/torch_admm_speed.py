@@ -27,7 +27,10 @@ from 239239239, noise from the next seed), at QP-ADMM's defaults
   ``--batch`` optimalH lanes and at the population's 8 x 256; and at
   ``--batch`` lanes for each of ``TIER_SHAPES``: optimalH padded to caps
   that put it in each of the kernel's tiers, and a 640 x 1280 code of
-  row weight 6 (``wide_code``, a cascade of 3,200 / 10,240 rows).
+  row weight 6 (``wide_code``, a cascade of 3,200 / 10,240 rows), each
+  beside its operation bound (``shapes_bound_ms``: the float32 operations
+  of one iteration on the real rows, ``ops.admm_kernel.iteration_work``,
+  over 67 TFLOP/s).
 
 Runs of one tree must give equal counters at every width and runner;
 prints one line per run and exits non-zero when they differ or a FER lies
@@ -69,6 +72,7 @@ POP_TRIALS = 256
 POP_ITERS = 1000
 POP_CHUNK = 64
 KERNEL_ITERS = 512
+F32_OPS_PER_S = 67e12   # the H100 SXM's float32 peak outside the tensor cores
 # (label, caps) of the kernel's per-shape times: optimalH at its size and
 # padded into the second, third and global tier, then the wide code
 TIER_SHAPES = (("optimalH", {}),
@@ -134,11 +138,21 @@ def wide_code() -> np.ndarray:
     return QCMatrix(160, present, shifts).to_dense()
 
 
-def _tier_ms(dev, seed, lanes) -> dict:
+def _ops_bound_ms(tables, lanes):
+    """The least device ms of one iteration of ``lanes`` lanes on the
+    packed ``tables``: ``admm_kernel.iteration_work``'s float32 operations
+    over the float32 peak; None for a tree without that count."""
+    if not hasattr(admm_kernel, "iteration_work"):
+        return None
+    ops = admm_kernel.iteration_work(tables, lanes, 1)[0]
+    return ops / F32_OPS_PER_S * 1e3
+
+
+def _tier_ms(dev, seed, lanes) -> tuple[dict, dict]:
     """Device ms per iteration (``_kernel_ms``) of ``lanes`` lanes at -3
-    dB for each of ``TIER_SHAPES``, keyed by label and the cascade's
-    (n_var, n_con, k)."""
-    out = {}
+    dB for each of ``TIER_SHAPES``, and each one's operation bound, keyed
+    by label and the cascade's (n_var, n_con, k)."""
+    out, bounds = {}, {}
     for label, caps in TIER_SHAPES:
         h = (wide_code() if label.startswith("wide") else
              read_pcm(str(bench.MATRIX)))
@@ -152,7 +166,8 @@ def _tier_ms(dev, seed, lanes) -> dict:
             cw, SNR, seed + 1, torch.arange(lanes, device=dev))
         key = f"{label} {(s.n_var, s.n_con, s.var_con.shape[1])}"
         out[key] = _kernel_ms(tables, llr[None], h.shape[1], 1.2, 0.55)
-    return out
+        bounds[key] = _ops_bound_ms(tables, lanes)
+    return out, bounds
 
 
 def _kernel_ms(tables, llrs, n, alpha, mu) -> float:
@@ -254,7 +269,8 @@ def main(argv=None) -> int:
             admm_kernel.pack_tables(tables), llrs, n, 1.95, 0.5)
         kernel["population_lanes"] = list(llrs.shape[:2])
         kernel["iterations_a_launch"] = KERNEL_ITERS
-        kernel["shapes_ms_per_iteration"] = _tier_ms(dev, seed, args.batch)
+        (kernel["shapes_ms_per_iteration"],
+         kernel["shapes_bound_ms"]) = _tier_ms(dev, seed, args.batch)
         print(" ".join(f"{k} {v}" for k, v in kernel.items()), flush=True)
 
     widths = [run("width", args.width_trials, w, True) for w in args.widths]

@@ -13,10 +13,20 @@ floors). The wrappers run the twins on a CPU tensor, the eager solve
 tensor raises. The refactored eager solve's tolerances against JAX stay
 ``tests/test_torch_ipm.py``'s.
 
+The kernels' launch plan (``ipm_step_plan``) on the CPU: legal at every
+shape of AGC-ALP's tiers, H02's, ragged and wide ones, for 1 to 256 lanes,
+covering every float of every lane once by the kernels' own index
+arithmetic (emulated here), refusing an empty shape with ValueError. The
+twins also equal JAX at a ragged T = 130, n = 283.
+
 On the card (marked ``gpu``; ``python -m pytest tests/test_torch_ipm_graph.py
 -m gpu --noconftest``): the kernels equal the twins bit for bit at
-T = 128, 640 and 1408, B = 128, n = 280 with the same special lanes; the
-graph solve equals the eager one bit for bit in x, y and err for cold,
+T = 128, 640 and 1408, B = 128, n = 280 with the same special lanes, at
+ragged, unaligned (width 1), H02 (T = 2176, n = 640), two-pass (T = 8192)
+and B = 1, 3 and 256 shapes, and in layouts the plan does not pick (fewer
+threads and several passes, more threads, width 1 on aligned arrays);
+both kernels captured in a CUDA graph replay to the eager launches' bits;
+the graph solve equals the eager one bit for bit in x, y and err for cold,
 warm and masked solves at those tiers, twice in a row; and the launch
 counters after a graph solve equal the eager solve's.
 """
@@ -29,7 +39,9 @@ import torch
 from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
 from ldpc_tpu_torch.ops import ipm_graph, ipm_kernel
 from ldpc_tpu_torch.ops.gemv_kernel import pack_rows
-from ldpc_tpu_torch.ops.ipm_kernel import ipm_step_len, ipm_update
+from ldpc_tpu_torch.ops.ipm_kernel import (MAX_THREADS, PER_THREAD,
+                                           ipm_step_len, ipm_step_plan,
+                                           ipm_update)
 from ldpc_tpu_torch.ops.ipm_ref import ipm_step_len_ref, ipm_update_ref
 from ldpc_tpu_torch.ops.ipm_solver import ipm_box_lp
 
@@ -185,6 +197,92 @@ def test_update_twin_equals_jax_bit_for_bit(case):
         assert float(got[0].min()) > 0.0 and float(got[2].min()) > 0.0
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_twins_equal_jax_bit_for_bit_ragged(case):
+    """Both twins against JAX at T = 130, n = 283 (neither a multiple of 4:
+    the kernels' width-1 layout)."""
+    v, d, ap, ad = _step_inputs(13, 6, 130, 283, case)
+    args = _step_args(v, d)
+    got = ipm_step_len_ref(*_t(args))
+    want = _jax_step_len(*(jnp.asarray(a) for a in args))
+    for g, w in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(w))
+    state, dirs = _state(v), _dirs(d)
+    got = ipm_update_ref(_t(state), _t(dirs), *_t((ap, ad)))
+    want = _jax_update(*((tuple(jnp.asarray(a) for a in group))
+                         for group in (state, dirs)),
+                       jnp.asarray(ap), jnp.asarray(ad))
+    for g, w in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(w))
+
+
+def _held(plan, bsz, width, vec):
+    """Emulates ``csrc/ipm_step.cu``'s ``at`` at width ``vec`` over the
+    plan's blocks, threads and passes: how often the plan's threads hold
+    each float of a (bsz, width) array."""
+    m = plan["threads"]
+    lane = np.arange(plan["blocks"])[:, None, None, None]
+    k = np.arange(m)[None, :, None, None]
+    p = np.arange(plan["passes"])[None, None, :, None]
+    r = np.arange(PER_THREAD)[None, None, None, :]
+    j = 4 * (p * m + k) + r if vec == 4 else (p * PER_THREAD + r) * m + k
+    lane, j = np.broadcast_arrays(lane, j)
+    keep = (lane < bsz) & (j < width)
+    count = np.zeros((bsz, width), np.int64)
+    np.add.at(count, (lane[keep], j[keep]), 1)
+    return count
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [280, 283, 640])
+@pytest.mark.parametrize("t", [128, 130, 1408, 2176, 8192])
+@pytest.mark.parametrize("bsz", [1, 3, 128, 256])
+def test_ipm_step_plan(bsz, t, n, aligned):
+    plan = ipm_step_plan(bsz, t, n, aligned)
+    m, passes = plan["threads"], plan["passes"]
+    assert plan["vec"] == (4 if aligned and t % 4 == 0 and n % 4 == 0
+                           else 1)
+    assert m % 32 == 0 and 32 <= m <= MAX_THREADS
+    assert plan["blocks"] == bsz
+    # 4 floats of each array a thread a pass, no warp left idle in the
+    # last pass, and more passes only where a block of MAX_THREADS is full
+    span = PER_THREAD * m * passes
+    assert span >= max(t, n) > span - PER_THREAD * 32
+    assert passes == 1 or m == MAX_THREADS
+    # rows at the plan's width; the step lengths' columns at width 1
+    for width, vec in ((t, plan["vec"]), (n, plan["vec"]), (n, 1)):
+        assert (_held(plan, bsz, width, vec) == 1).all()
+
+
+def test_ipm_step_plan_at_the_path_shapes():
+    """AGC-ALP's deepest tier and H02's, as the card runs them."""
+    assert ipm_step_plan(128, 1408, 280, True) == {
+        "vec": 4, "threads": 352, "passes": 1, "blocks": 128}
+    assert ipm_step_plan(128, 2176, 640, True) == {
+        "vec": 4, "threads": 544, "passes": 1, "blocks": 128}
+    assert ipm_step_plan(4, 8192, 640, True) == {
+        "vec": 4, "threads": 1024, "passes": 2, "blocks": 4}
+    assert ipm_step_plan(128, 130, 283, False)["vec"] == 1
+    assert ipm_step_plan(128, 128, 280, True)["threads"] == 96
+
+
+@pytest.mark.parametrize("shape", [(4, 32769, 280), (4, 128, 40000)])
+def test_ipm_step_plan_takes_any_width(shape):
+    """A lane wider than one pass of a full block takes more passes."""
+    bsz, t, n = shape
+    plan = ipm_step_plan(bsz, t, n, True)
+    assert plan["threads"] == MAX_THREADS
+    assert plan["passes"] == -(-max(t, n) // (PER_THREAD * MAX_THREADS))
+    for width in (t, n):
+        assert (_held(plan, bsz, width, plan["vec"]) == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(0, 128, 280), (4, 0, 280), (4, 128, 0)])
+def test_ipm_step_plan_refuses(shape):
+    with pytest.raises(ValueError, match="ipm_step_plan"):
+        ipm_step_plan(*shape, True)
+
+
 def test_wrappers_run_the_twins_on_cpu():
     v, d, ap, ad = _step_inputs(9, 4, 16, 12, "random")
     before = (ipm_kernel.STEP_LEN_LAUNCHES, ipm_kernel.UPDATE_LAUNCHES)
@@ -291,24 +389,143 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_inputs(dev, bsz, t, n, case, offset=0):
+    """(step-length arguments, state, dirs, (ap, ad)) on the card: B lanes
+    of ``_step_inputs`` (B = 1: the case's lane 1 of a 3-lane draw, alone),
+    each (B, T) or (B, n) array a contiguous view ``offset`` floats into a
+    buffer of its own (offset 1: not 16-byte aligned)."""
+    v, d, ap, ad = _step_inputs(11, max(bsz, 3), t, n, case)
+    lanes = slice(1, 2) if bsz == 1 else slice(0, bsz)
+
+    def put(a):
+        a = np.ascontiguousarray(a[lanes])
+        buf = torch.empty(a.size + offset, dtype=torch.float32, device=dev)
+        view = buf[offset:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    v = {k: put(a) for k, a in v.items()}
+    d = {k: put(a) for k, a in d.items()}
+    return _step_args(v, d), _state(v), _dirs(d), (put(ap), put(ad))
+
+
+def _kernels_vs_twins(dev, bsz, t, n, case, offset=0, plan=None):
+    """Both kernels (through the wrappers, or by ``plan``) against their
+    twins on the same card inputs, bit for bit."""
+    args, state, dirs, aps = _card_inputs(dev, bsz, t, n, case, offset)
+    want = ipm_step_len_ref(*args)
+    ref = ipm_update_ref(state, dirs, *aps)
+    out = tuple(v.clone() for v in state)
+    if plan is None:
+        before = (ipm_kernel.STEP_LEN_LAUNCHES, ipm_kernel.UPDATE_LAUNCHES)
+        got = ipm_step_len(*args)
+        ipm_update(out, dirs, *aps)
+        assert (ipm_kernel.STEP_LEN_LAUNCHES - before[0],
+                ipm_kernel.UPDATE_LAUNCHES - before[1]) == (1, 1)
+    else:
+        got = (torch.empty_like(aps[0]), torch.empty_like(aps[0]))
+        ipm_kernel._step_len_launch(args, *got, 0.995, plan)
+        ipm_kernel._update_launch(out, dirs, *aps, plan)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(w))
+    for g, w in zip(out, ref):
+        assert np.array_equal(_bits(g), _bits(w))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("t", [128, 640, 1408])
 def test_kernels_equal_twins_on_card(cuda_device, t, case):
-    v, d, ap, ad = _step_inputs(11, 128, t, 280, case)
-    args = _t(_step_args(v, d), cuda_device)
-    before = (ipm_kernel.STEP_LEN_LAUNCHES, ipm_kernel.UPDATE_LAUNCHES)
-    got, want = ipm_step_len(*args), ipm_step_len_ref(*args)
-    for g, w in zip(got, want):
+    _kernels_vs_twins(cuda_device, 128, t, 280, case)
+
+
+# (B, T, n, offset): ragged (width 1), unaligned views (width 1), few
+# lanes, B = 256, H02's deepest tier (one block of 544 threads a lane),
+# lanes that take two passes of a block of 1024
+CARD_SHAPES = [(128, 130, 283, 0), (128, 1408, 280, 1), (1, 1408, 280, 0),
+               (3, 640, 280, 0), (3, 130, 283, 1), (256, 1408, 280, 0),
+               (256, 128, 280, 0), (128, 2176, 640, 0), (128, 2176, 640, 1),
+               (4, 8192, 640, 0), (3, 8190, 283, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernels_equal_twins_on_card_at_every_shape(cuda_device, shape,
+                                                    case):
+    bsz, t, n, offset = shape
+    _kernels_vs_twins(cuda_device, bsz, t, n, case, offset)
+
+
+def _layout(bsz, vec, threads):
+    return {"vec": vec, "threads": threads, "blocks": bsz}
+
+
+# (B, T, n, plan): layouts the plan does not pick at that shape: fewer
+# threads, so several passes (4 and 11 at T = 1408; 2 and 3 at H02's),
+# more threads than the lane needs, width 1 on aligned arrays
+CARD_LAYOUTS = [
+    (128, 1408, 280, _layout(128, 4, 96)),
+    (128, 1408, 280, _layout(128, 1, 96)),
+    (128, 1408, 280, _layout(128, 1, 352)),
+    (128, 1408, 280, _layout(128, 4, 1024)),
+    (3, 1408, 283, _layout(3, 1, 32)),
+    (128, 128, 280, _layout(128, 4, 256)),
+    (128, 128, 280, _layout(128, 1, 64)),
+    (128, 2176, 640, _layout(128, 4, 288)),
+    (128, 2176, 640, _layout(128, 1, 192)),
+    (128, 2176, 640, _layout(128, 1, 544)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("layout", CARD_LAYOUTS)
+def test_every_layout_equals_twins_on_card(cuda_device, layout, case):
+    *shape, plan = layout
+    _kernels_vs_twins(cuda_device, *shape, case, plan=plan)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_an_illegal_layout(cuda_device):
+    """The entry points check the plan they are given (width 4 on
+    unaligned arrays, a block above 1024 threads, threads not a multiple
+    of 32, a width other than 1 or 4) and refuse it."""
+    args, state, dirs, aps = _card_inputs(cuda_device, 4, 1408, 280,
+                                          "random", 1)
+    ap = torch.empty_like(aps[0])
+    for plan in (_layout(4, 4, 352), _layout(4, 1, 1056), _layout(4, 1, 48),
+                 _layout(4, 2, 352)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ipm_kernel._step_len_launch(args, ap, ap.clone(), 0.995, plan)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ipm_kernel._update_launch(state, dirs, *aps, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 1408, 280, 0), (128, 2176, 640, 0),
+                                   (3, 130, 283, 1), (1, 1408, 280, 0),
+                                   (4, 8192, 640, 0)])
+def test_kernels_replay_in_a_graph_on_card(cuda_device, shape):
+    """Both kernels captured in one CUDA graph (the step lengths feeding
+    the update, as in a Newton step) replay to the eager launches' bits;
+    at T = 8192 a lane takes two passes."""
+    bsz, t, n, offset = shape
+    args, state, dirs, _ = _card_inputs(cuda_device, bsz, t, n, "nan_dx",
+                                        offset)
+    eager = tuple(v.clone() for v in state)
+    graphed = tuple(v.clone() for v in state)
+    want = ipm_step_len(*args)
+    ipm_update(eager, dirs, *want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ipm_step_len(*args)
+        ipm_update(graphed, dirs, *got)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip((*got, *graphed), (*want, *eager)):
         assert np.array_equal(_bits(g), _bits(w))
-    dirs, aps = _t(_dirs(d), cuda_device), _t((ap, ad), cuda_device)
-    state = _t(_state(v), cuda_device)
-    ref = ipm_update_ref(state, dirs, *aps)
-    out = ipm_update(tuple(s.clone() for s in state), dirs, *aps)
-    for g, w in zip(out, ref):
-        assert np.array_equal(_bits(g), _bits(w))
-    assert (ipm_kernel.STEP_LEN_LAUNCHES - before[0],
-            ipm_kernel.UPDATE_LAUNCHES - before[1]) == (1, 1)
 
 
 @pytest.mark.gpu
