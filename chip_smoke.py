@@ -144,7 +144,13 @@ printing one line before the next starts:
     iterations, and the bound (operations: the float32 work of an
     iteration; the chunk's bytes over its iterations are far below).
     H02 at the defaults (e_min 2: 2 * 0.55 <= 1.2), 64 lanes: FER 1.0 and
-    no lane successful;
+    no lane successful. H02 at alpha 0.9, mu 0.5 (``run_h02_bench.sh``'s
+    feasible pair) at -5 dB, where lanes stop and its 72 slots a variable
+    are summed in XLA's windows of 32: the kernel's state against its
+    twin's after 32 and 512 iterations on 64 lanes (equal but on sum2
+    ties), those lanes decoded on the card and on the CPU at ``max_iter``
+    200 (bits and success equal), and the kernel's device ms per
+    iteration at 1024 H02 lanes beside optimalH's, with its bound;
 11. Full LP: ``run_sweep`` with decoders ``full-lp``, -3 dB, 512 trials in
     batches of 256, 2,000 PDHG steps (no golden FER: the reference leaves
     this decoder out, ``main.cpp:36``); 32 lanes on the card and on the
@@ -210,12 +216,21 @@ printing one line before the next starts:
     (each file alone, each generation's 8 together). Any difference fails
     the phase. Prints ms per call of both paths. The core is no GPU kernel:
     its line comes before the kernels' JSON line, not in it.
+17. the optimizer's before/after tool (``scripts/torch_opt_before_after.py``,
+    the port of ``scripts/opt_before_after.py``) on a copy of the JAX
+    package's run under ``build/`` (its state and ``data/optimalH_tpu.txt``)
+    at 2,000 trials: the initial, optimized, optimalH and H05 matrices at
+    the objective's config (alpha 1.95, mu 0.5, 1,000 iterations) and the
+    report's (1.2, 0.55, 10,000), -3 dB. Gates: the record has the keys of
+    the JAX run's ``reports/optimize_before_after.json``, and optimalH's
+    and H05's FERs at both configs lie within |z| < 3.5 of that run's
+    (10,000 trials); the iteration kernel launched.
 
-Phases 10-16 reset every kernel's launch count before their path and print
+Phases 10-17 reset every kernel's launch count before their path and print
 the counts after it (phase 12 runs BP's kernel, phase 15 BP's, the PDHG
 kernel and QP-ADMM's in every rank, phase 16 none: it runs on the host);
-QP-ADMM's iteration kernel must have launched on phases 10, 13, 14 and
-15.
+QP-ADMM's iteration kernel must have launched on phases 10, 13, 14, 15 and
+17.
 Each phase prints its seconds. Then the script prints the host core's JSON
 line, the kernels' JSON line, the card's ``name, power.limit`` line and,
 last,
@@ -294,6 +309,12 @@ ADMM_TRIALS = 2048
 ADMM_CPU_LANES = 64
 ADMM_CPU_ITERS = 2000   # the card-vs-CPU decode's max_iter, as the gpu test's
 ADMM_H02_LANES = 64
+# H02 where QP-ADMM decodes: scripts/run_h02_bench.sh's feasible (alpha,
+# mu), at -5 dB, where lanes stop; its CPU decode cut to 200 iterations
+# (the twin takes ~50 ms an iteration there at 64 lanes on the card's host)
+ADMM_H02_PARAMS = (0.9, 0.5)
+ADMM_H02_SNR = -5.0
+ADMM_H02_CPU_ITERS = 200
 ADMM_CHUNK = 64
 ADMM_STATE_ITERS = (32, 512)   # the kernel's state against its twin's
 ADMM_TIMED_ITERS = 512         # one launch, timed by events
@@ -328,6 +349,15 @@ WORLD_ADMM_ITERS = 2000  # QP-ADMM's cap in the check (the failing trials'
 WORLD_OPT = dict(trials=128, final_trials=256, screen_trials=64,
                  screen_iters=200, admm_max_iter=300, generations=4,
                  population=2)  # 2 generations of 2 proposals, -3 dB
+# phase 17: the optimizer's before/after tool (scripts/
+# torch_opt_before_after.py) on a copy of the JAX package's run, its
+# 10,000 trials cut to 2,000; the JAX run's record beside it
+BA_STATE = "build/chip_smoke_before_after_state.json"
+BA_OPTIMIZED = "data/optimalH_tpu.txt"
+BA_JAX = "reports/optimize_before_after.json"
+BA_TRIALS = 2000
+BA_GATED = ("fer_reference_optimalH", "fer_H05",
+            "report_fer_reference_optimalH", "report_fer_H05")
 # phase 16: the native host core against NumPy on the card's host
 NATIVE_FILES = ("H", "optimalH", "H02", "H05")
 NATIVE_GENERATIONS = 25  # of the state file's 8 chains: 200 mutations
@@ -1942,27 +1972,30 @@ def _same_counters(a, b) -> bool:
     return all(getattr(a, k) == getattr(b, k) for k in COUNTERS)
 
 
-def _admm_kernel_vs_twin(dec, llr):
-    """Phase 10's check of QP-ADMM's iteration kernel against its twin on
-    the card at the batch's width (``llr`` (B, n) on the card, ``dec`` at
-    the defaults): the state after ADMM_STATE_ITERS iterations from fresh
-    lanes and the batched decode's state at ``dec.max_iter``, each equal on
-    every lane but sum2 ties (printed); then device ms per iteration of one
-    ADMM_TIMED_ITERS-iteration launch with no lane stopping (events), the
-    twin's over ADMM_TWIN_ITERS, and the bound. Returns the JSON row's
-    numbers."""
+def _admm_start(dec, llr):
+    """Fresh (q, v, z, yl, done, it) of ``dec`` for ``llr``, a population
+    of one."""
+    st = dec.stream_init(llr)
+    return (st["q"], st["v"], st["z"], st["yl"], st["done"][:, None],
+            st["it"][:, None])
+
+
+def _admm_states_vs_twin(dec, llr, iters_list, label=""):
+    """The iteration kernel against its twin on the card from fresh lanes
+    of ``llr`` (B, n): the state after each of ``iters_list`` iterations
+    (``dec.max_iter`` among them: the batched decode, its bits too), equal
+    on every lane but sum2 ties (printed); any other difference fails.
+    Returns the largest |difference| in v, z and yl."""
     import torch
     from ldpc_tpu_torch.ops import admm_kernel
     from ldpc_tpu_torch.ops.admm_ref import admm_iterate_ref, stop_ties
     kern, twin = admm_kernel.admm_iterate, admm_iterate_ref
-    st = dec.stream_init(llr)
-    start = (st["q"], st["v"], st["z"], st["yl"], st["done"][:, None],
-             st["it"][:, None])
+    start = _admm_start(dec, llr)
     tables = dec._population()
     args = (tables, dec.alpha, dec.mu, dec.eps_stop, dec.max_iter)
-    bsz, n_con = llr.shape[0], dec.structure.n_con
+    bsz = llr.shape[0]
     err = 0.0
-    for iters in ADMM_STATE_ITERS + (dec.max_iter,):
+    for iters in iters_list:
         t0 = time.perf_counter()
         got = kern(*(t.clone() for t in start), *args, iters)
         want = twin(*start, *args, iters)
@@ -1976,15 +2009,16 @@ def _admm_kernel_vs_twin(dec, llr):
             same[key] = torch.equal(a, b)
             if key in ("v", "z", "yl"):
                 err = max(err, float((a - b).abs().max()))
-        label = ("the batched decode" if iters == dec.max_iter else
-                 f"{iters} iterations")
+        label_it = ("the batched decode" if iters == dec.max_iter else
+                    f"{iters} iterations")
         extra = ""
         if iters == dec.max_iter:       # the decode's bits, as it reads v
             bits = [r[0][:, :dec.n][keep[:, 0]] > 0.5 for r in (got, want)]
             same["bits"] = torch.equal(*bits)
             extra = f", mean iterations {float(got[4].float().mean()):.1f}"
         print(f"[10 qp-admm path] admm_iterate against its twin, {bsz} "
-              f"lanes, {label} (max_iter {dec.max_iter}): equal outside "
+              f"lanes{label}, {label_it} (max_iter {dec.max_iter}): equal "
+              f"outside "
               f"ties {same}{extra}; lanes done {int(got[3].sum())}; sum2 "
               f"ties (lane, candidate, iteration, kernel sum2, twin sum2) "
               f"{ties}; other differences {others}; "
@@ -1992,14 +2026,42 @@ def _admm_kernel_vs_twin(dec, llr):
         if others or not all(same.values()):
             raise AssertionError(f"admm_iterate differs from its twin: "
                                  f"{same}, {others}")
+    return err
 
-    # device time per iteration: one launch with no lane stopping
+
+def _admm_ms(dec, llr) -> float:
+    """Device ms per iteration of one ADMM_TIMED_ITERS-iteration launch of
+    the kernel from fresh lanes of ``llr``, no lane stopping (events)."""
+    from ldpc_tpu_torch.ops import admm_kernel
+    start = _admm_start(dec, llr)
+    tables = dec._population()
     never = (float("-inf"), 2 ** 31 - 1)
     copies = [tuple(t.clone() for t in start) for _ in range(REPEATS + 1)]
-    ms = _time_ms(lambda: kern(*copies.pop(), tables, dec.alpha, dec.mu,
-                               *never, ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
-    plain = _time_ms(lambda: twin(*start, tables, dec.alpha, dec.mu, *never,
-                                  ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
+    return _time_ms(lambda: admm_kernel.admm_iterate(
+        *copies.pop(), tables, dec.alpha, dec.mu, *never,
+        ADMM_TIMED_ITERS)) / ADMM_TIMED_ITERS
+
+
+def _admm_kernel_vs_twin(dec, llr):
+    """Phase 10's check of QP-ADMM's iteration kernel against its twin on
+    the card at the batch's width (``llr`` (B, n) on the card, ``dec`` at
+    the defaults): the state after ADMM_STATE_ITERS iterations from fresh
+    lanes and the batched decode's state at ``dec.max_iter``, each equal on
+    every lane but sum2 ties (printed); then device ms per iteration of one
+    ADMM_TIMED_ITERS-iteration launch with no lane stopping (events), the
+    twin's over ADMM_TWIN_ITERS, and the bound. Returns the JSON row's
+    numbers."""
+    from ldpc_tpu_torch.ops import admm_kernel
+    from ldpc_tpu_torch.ops.admm_ref import admm_iterate_ref
+    err = _admm_states_vs_twin(dec, llr, ADMM_STATE_ITERS + (dec.max_iter,))
+    start = _admm_start(dec, llr)
+    tables = dec._population()
+    bsz, n_con = llr.shape[0], dec.structure.n_con
+    never = (float("-inf"), 2 ** 31 - 1)
+    ms = _admm_ms(dec, llr)
+    plain = _time_ms(lambda: admm_iterate_ref(
+        *start, tables, dec.alpha, dec.mu, *never,
+        ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
     n_var = dec.structure.n_var
     ops, nbytes = admm_kernel.iteration_work(tables, bsz,
                                               ADMM_TIMED_ITERS)
@@ -2154,7 +2216,73 @@ def phase_qpadmm_path():
           flush=True)
     if fer02 != 1.0 or bool(r02.success.any()) or bool(r02.bits.any()):
         raise AssertionError("QP-ADMM on H02 at the defaults must fail")
+    row["h02_ms"] = _admm_h02_feasible(h02, g02, cfg.seed, row["ms"])
     return row
+
+
+def _admm_h02_feasible(h02, g02, seed, optimal_ms) -> float:
+    """Phase 10 on H02 at ADMM_H02_PARAMS and ADMM_H02_SNR, where its 72
+    slots a variable are summed in XLA's windows of 32: the kernel's state
+    against its twin's after ADMM_STATE_ITERS iterations on ADMM_H02_LANES
+    lanes (equal but on sum2 ties), the card's decode against the CPU's
+    (bits and success equal), and the kernel's device ms per iteration at
+    the batch's width beside optimalH's (``optimal_ms``). Returns H02's."""
+    import torch
+    from ldpc_tpu_torch.channel.awgn import gen_random_codewords, noise_scales
+    from ldpc_tpu_torch.decoders import default_batch
+    from ldpc_tpu_torch.decoders.admm import QPADMMDecoder
+    from ldpc_tpu_torch.harness.experiment import channel_step
+    from ldpc_tpu_torch.ops import admm_kernel
+    from ldpc_tpu_torch.ops.admm_ref import admm_iterate_ref
+    dev = torch.device("cuda")
+    alpha, mu = ADMM_H02_PARAMS
+    bsz = default_batch("qp-admm")
+    dec = QPADMMDecoder(h02, alpha=alpha, mu=mu, device=dev)
+    cw = gen_random_codewords(g02, bsz, torch.Generator().manual_seed(seed),
+                              dev)
+    llr = noise_scales(ADMM_H02_SNR)[1] * channel_step(
+        cw, torch.arange(bsz, device=dev), ADMM_H02_SNR, seed + 1)
+    lanes = llr[:ADMM_H02_LANES]
+    where = f"at alpha {alpha}, mu {mu}, {ADMM_H02_SNR} dB"
+    _admm_states_vs_twin(dec, lanes, ADMM_STATE_ITERS, f" of H02 {where}")
+    t0 = time.perf_counter()
+    card = QPADMMDecoder(h02, alpha=alpha, mu=mu,
+                         max_iter=ADMM_H02_CPU_ITERS,
+                         device=dev).decode_batch(lanes)
+    cpu = QPADMMDecoder(h02, alpha=alpha, mu=mu,
+                        max_iter=ADMM_H02_CPU_ITERS,
+                        device="cpu").decode_batch(lanes.cpu())
+    bits_ok = torch.equal(card.bits.cpu(), cpu.bits)
+    succ_ok = torch.equal(card.success.cpu(), cpu.success)
+    stopped = int((cpu.iterations < ADMM_H02_CPU_ITERS).sum())
+    print(f"[10 qp-admm path] H02 {where}, {ADMM_H02_LANES} lanes on the "
+          f"card and on the CPU at max_iter {ADMM_H02_CPU_ITERS}: bits equal "
+          f"{bits_ok}, success equal {succ_ok}, iterations equal on "
+          f"{int((card.iterations.cpu() == cpu.iterations).sum())} lanes, "
+          f"{stopped} lanes stopped before max_iter; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not (bits_ok and succ_ok):
+        raise AssertionError("QP-ADMM on H02 on the card differs from the "
+                             "CPU")
+    ms = _admm_ms(dec, llr)
+    tables = dec._population()
+    never = (float("-inf"), 2 ** 31 - 1)
+    start = _admm_start(dec, llr)
+    plain = _time_ms(lambda: admm_iterate_ref(
+        *start, tables, alpha, mu, *never,
+        ADMM_TWIN_ITERS)) / ADMM_TWIN_ITERS
+    ops, nbytes = admm_kernel.iteration_work(tables, bsz, ADMM_TIMED_ITERS)
+    bound = _bound(nbytes, ops, F32_OPS_PER_S)
+    print(f"[10 qp-admm path] admm_iterate at {bsz} lanes of H02 (n_var "
+          f"{dec.structure.n_var}, n_con {dec.structure.n_con}, 72 slots a "
+          f"variable in windows of 32), alpha {alpha}, mu {mu}: {ms:.6f} ms "
+          f"per iteration of device time (one {ADMM_TIMED_ITERS}-iteration "
+          f"launch, events) beside optimalH's {optimal_ms:.6f}; twin "
+          f"{plain:.6f} ms ({ADMM_TWIN_ITERS} iterations, events); bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {ops} float32 "
+          f"operations per iteration); kernel/bound "
+          f"{ms / bound['bound_ms']:.1f}", flush=True)
+    return ms
 
 
 def phase_full_lp():
@@ -2965,6 +3093,46 @@ def phase_native():
                                 for label, per in ms.items()}}
 
 
+def phase_before_after():
+    import shutil
+
+    from ldpc_tpu_torch.harness.reference_data import Z_BOUND, z_score
+    from scripts import torch_opt_before_after as tool
+
+    os.makedirs("build", exist_ok=True)
+    shutil.copy(OPT_STATE, BA_STATE)
+    _agc_counts(reset=True, counters=ALL_COUNTERS)
+    t0 = time.perf_counter()
+    out = tool.before_after(BA_STATE, BA_OPTIMIZED, BA_TRIALS, device="cuda")
+    secs = time.perf_counter() - t0
+    counts = _agc_counts(counters=ALL_COUNTERS)
+    _path_counts("17 before/after", counts, need=("admm_iterate",))
+    with open(BA_JAX) as f:
+        jax_out = json.load(f)
+    keys_ok = (set(out) == set(jax_out) and all(
+        set(out[k]) == set(jax_out[k]) for k in ("objective_config",
+                                                 "report_config")))
+    zs = {k: z_score(out[k], out["trials"], jax_out[k], jax_out["trials"])
+          for k in BA_GATED}
+    print(f"[17 before/after] {json.dumps(out)}", flush=True)
+    print(f"[17 before/after] the JAX run's record "
+          f"({jax_out['trials']} trials): {json.dumps(jax_out)}", flush=True)
+    print(f"[17 before/after] keys equal to the JAX record's: {keys_ok}; z "
+          f"against the JAX run: "
+          + ", ".join(f"{k} {out[k]:.4f} / {jax_out[k]:.4f} (z {z:+.2f})"
+                      for k, z in zs.items())
+          + f"; {secs:.2f} s for two evaluator calls of 4 matrices x "
+          f"{BA_TRIALS} trials",
+          flush=True)
+    if not keys_ok:
+        raise AssertionError(f"before/after keys {sorted(out)} differ from "
+                             f"the JAX record's {sorted(jax_out)}")
+    far = {k: z for k, z in zs.items() if not abs(z) < Z_BOUND}
+    if far:
+        raise AssertionError(f"before/after FERs outside Z_BOUND of the JAX "
+                             f"run: {far}")
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -3000,6 +3168,7 @@ def main() -> int:
     admm_row.update(_timed("14 optimizer", phase_optimizer))
     _timed("15 worlds", phase_worlds)
     host_core = _timed("16 native", phase_native)
+    _timed("17 before/after", phase_before_after)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

@@ -72,15 +72,32 @@
 // Bit for bit with the twin in v, z, yl, done and it:
 //  * every product and sum rounds on its own (__fmul_rn, __fadd_rn,
 //    __fsub_rn, __fdiv_rn): nvcc would contract a * b + c into an FMA;
-//  * torch's association: t = yl + mu (z - b); bq = (q + alpha/2) + acc
-//    with acc = p_0, then acc + p_1, ... in slot order; r = b - ((p0 + p1)
-//    + p2); a coefficient of +-1 multiplies exactly, so p = +-t[c] is the
-//    product (the sign is an exclusive-or of the code's sign bit);
+//  * torch's association: t = yl + mu (z - b); bq = (q + alpha/2) + acc;
+//    r = b - ((p0 + p1) + p2); a coefficient of +-1 multiplies exactly, so
+//    p = +-t[c] is the product (the sign is an exclusive-or of the code's
+//    sign bit);
+//  * acc sums a variable's slots as XLA on the CPU sums a reduction (the
+//    twin's `xla_sum`). Up to 32 slots a variable (k <= 32, the tables'
+//    width, caps included): acc = p_0, then acc + p_1, ... in slot order.
+//    Past 32 the slots fall in windows of 32, the first
+//    floor((32 ceil(k / 32) - k) / 2) of which are padding in front:
+//    each window is summed in order from +0, and the windows' sums by the
+//    same rule again: in order from +0 up to 32 windows, and past that in
+//    windows of 32 windows from +0 with their own front padding, whose
+//    sums are added in order (k <= kMaxSlots makes at most 1,024 windows,
+//    so two levels are all there are). `pack_tables` splits a quad of
+//    slots that crosses a window's boundary into four items and marks the
+//    item that starts each window but the first (kWin); the kernel's
+//    template flag W (k > 32) takes that path, so the code of k <= 32 is
+//    the same as without it, and keeps a window's sum and a sum of windows
+//    beside acc. A sum from +0 is never -0, so adding
+//    padding (+0, or t[0] * 0 of either sign) to it changes nothing, and a
+//    window or a group of windows made of padding alone adds +0;
 //  * a padding slot reads the pair's entry 0 times 0, as the twin gathers
 //    it (a zero row beside v and t, rewritten each iteration): on the
 //    variable side in its slot up to the last real one and once for the
-//    trailing ones (adding the same zero again changes nothing), on the
-//    constraint side in its slot;
+//    trailing ones (adding the same zero again changes nothing; past 32
+//    slots nothing at all), on the constraint side in its slot;
 //  * the clamps keep NaN, as torch's clamp and clamp_min do;
 //  * eps_stop arrives as float32, as torch compares it.
 // sum2 is summed in this kernel's own fixed order, the same in every tier:
@@ -110,6 +127,8 @@ constexpr unsigned kBad16 = 0xffffu;       // a constraint code outside
 constexpr unsigned kBad32 = 0xffffffffu;   // a variable item outside
 constexpr unsigned kSign16 = 0x8000u;      // constraint code: -1
 constexpr unsigned kRun = 0x80000000u;     // variable item: a quad of slots
+constexpr unsigned kWin = 0x40000000u;     // variable item: starts a window
+constexpr int kWindow = 32;                // XLA's window past 32 terms
 // var_info (64 bits): base | items << 32 | (slots < k) << 48 | (the
 // variable is 0) << 49; a register tier packs it into 32 bits as base |
 // items << 17 | trail << 26 | var0 << 27
@@ -118,6 +137,7 @@ constexpr int kTrailBit = 26;
 constexpr int kVar0Bit = 27;
 constexpr int kMaxLen = 511;         // slots a variable in a register tier
 constexpr int kMaxSlots = 32767;     // slots a variable in any tier
+static_assert(kMaxSlots <= 32 * 32 * 32, "two levels of XLA's windows");
 constexpr int kCtl = 16;             // ints of slot control in shared memory
 
 struct Tier {
@@ -223,7 +243,7 @@ __device__ __forceinline__ V entry(const V* p) {
 
 // one item of a variable's row added into acc for all L lanes (acc set by
 // the first item): a quad of four slots (four t rows, one vector load a
-// lane) or one slot; signs by exclusive-or
+// lane) or one slot; signs by exclusive-or (kWin is not read here)
 template <int L, bool kFirst>
 __device__ __forceinline__ void add_item(const float* st, unsigned c,
                                          float (&acc)[L]) {
@@ -329,7 +349,7 @@ struct Params {
   int max_iter, iters;
 };
 
-template <int T, int L, int RV, int RQ, int B, bool G>
+template <int T, int L, int RV, int RQ, int B, bool G, bool W>
 __global__ void __launch_bounds__(T, B)
     admm_iterate_kernel(const Params p) {
   static_assert(!G || L == 1, "the global tier runs one lane a block");
@@ -540,10 +560,52 @@ __global__ void __launch_bounds__(T, B)
         }
       }
       float acc[L], x[L];
-      add_item<L, true>(st, entry<G>(vcsr + base), acc);
+      if constexpr (W) {
+        // a window's sum, and the windows' sums of the current group of
+        // 32 windows; the window a kWin item starts is counted in w, and
+        // a group ends where XLA's second level (its own front padding
+        // before the k / 32 windows' sums) puts a boundary
+        const int n_win = (p.k + kWindow - 1) / kWindow;
+        const int front2 =
+            ((n_win + kWindow - 1) / kWindow * kWindow - n_win) / 2;
+        float win[L], grp[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) acc[l] = grp[l] = win[l] = 0.0f;
+        // (the first item sets win as in slot order: a window's sum from
+        // +0 differs from it only as -0 against +0, and folding into grp,
+        // which starts from +0, makes that +0 too); a kWin item folds win
+        // into grp by selects, not by a branch, which runs faster
+        int w = 0;
+        add_item<L, true>(st, entry<G>(vcsr + base), win);
 #pragma unroll 2
-      for (int j = 1; j < items; ++j)
-        add_item<L, false>(st, entry<G>(vcsr + base + 32 * j), acc);
+        for (int j = 1; j < items; ++j) {
+          const unsigned c = entry<G>(vcsr + base + 32 * j);
+          const bool m = (c & kWin) != 0;
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            const float g = __fadd_rn(grp[l], win[l]);
+            grp[l] = m ? g : grp[l];
+            win[l] = m ? 0.0f : win[l];
+          }
+          w += m;
+          if (m && ((w + front2) & (kWindow - 1)) == 0) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+              acc[l] = __fadd_rn(acc[l], grp[l]);
+              grp[l] = 0.0f;
+            }
+          }
+          add_item<L, false>(st, c, win);
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l)
+          acc[l] = __fadd_rn(acc[l], __fadd_rn(grp[l], win[l]));
+      } else {
+        add_item<L, true>(st, entry<G>(vcsr + base), acc);
+#pragma unroll 2
+        for (int j = 1; j < items; ++j)
+          add_item<L, false>(st, entry<G>(vcsr + base + 32 * j), acc);
+      }
       if (trail) {
 #pragma unroll
         for (int l = 0; l < L; ++l) acc[l] = __fadd_rn(acc[l], tz[l]);
@@ -708,8 +770,10 @@ __global__ void __launch_bounds__(T, B)
         if (pos < nv_real) {
           val = sv[pos * L + l];
         } else {
-          float acc = tz[l];
-          if (p.k > 1) acc = __fadd_rn(acc, tz[l]);
+          // k slots of t[0] * 0: in order that zero, past 32 windows of
+          // padding, which sum to +0
+          float acc = W ? 0.0f : tz[l];
+          if (p.k > 1 && !W) acc = __fadd_rn(acc, tz[l]);
           const float den = __fsub_rn(__fmul_rn(m, __ldg(ec + i)), a);
           const float iv = __fdiv_rn(-1.0f, den == 0.0f ? 1.0f : den);
           val = clamp01(__fmul_rn(
@@ -747,13 +811,19 @@ __global__ void __launch_bounds__(T, B)
 
 typedef void (*KernelFn)(const Params);
 
+template <bool W>
 KernelFn tier_kernel(int tier) {
   switch (tier) {
-    case 0: return admm_iterate_kernel<256, 2, 3, 5, 2, false>;
-    case 1: return admm_iterate_kernel<512, 2, 3, 5, 1, false>;
-    case 2: return admm_iterate_kernel<512, 1, 8, 5, 1, false>;
-    default: return admm_iterate_kernel<512, 1, 0, 16, 1, true>;
+    case 0: return admm_iterate_kernel<256, 2, 3, 5, 2, false, W>;
+    case 1: return admm_iterate_kernel<512, 2, 3, 5, 1, false, W>;
+    case 2: return admm_iterate_kernel<512, 1, 8, 5, 1, false, W>;
+    default: return admm_iterate_kernel<512, 1, 0, 16, 1, true, W>;
   }
+}
+
+// the kernel of a tier at k slots a variable: with XLA's windows past 32
+KernelFn pick_kernel(int tier, int k) {
+  return k > kWindow ? tier_kernel<true>(tier) : tier_kernel<false>(tier);
 }
 
 }  // namespace
@@ -781,7 +851,7 @@ int ldpc_admm_iterate_occupancy(int n_var, int n_con, int k, int* out) {
   int plan[5];
   if (ldpc_admm_iterate_plan(n_var, n_con, k, plan) != cudaSuccess)
     return cudaErrorInvalidValue;
-  const KernelFn fn = tier_kernel(plan[3]);
+  const KernelFn fn = pick_kernel(plan[3], k);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
@@ -830,13 +900,15 @@ int ldpc_admm_iterate(const void* q, void* v, void* z, void* yl, void* done,
   const long long pairs = static_cast<long long>(batch) * p_count;
   if (pairs == 0 || iters <= 0) return cudaSuccess;
   if (pairs > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // blocks per SM and SMs of this plan on the current device, asked once
-  static int seen[kTierCount][3];          // device + 1, smem, blocks
-  static int sms[kTierCount];
+  // blocks per SM and SMs of this plan's kernel on the current device,
+  // asked once
+  static int seen[2 * kTierCount][3];      // device + 1, smem, blocks
+  static int sms[2 * kTierCount];
+  const int which = 2 * plan[3] + (k > kWindow);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int* memo = seen[plan[3]];
+  int* memo = seen[which];
   if (memo[0] != dev + 1 || memo[1] != smem) {
     int occ[4];
     const int code = ldpc_admm_iterate_occupancy(n_var, n_con, k, occ);
@@ -844,9 +916,9 @@ int ldpc_admm_iterate(const void* q, void* v, void* z, void* yl, void* done,
     memo[0] = dev + 1;
     memo[1] = smem;
     memo[2] = occ[0];
-    sms[plan[3]] = occ[1];
+    sms[which] = occ[1];
   }
-  const int occ[2] = {memo[2], sms[plan[3]]};
+  const int occ[2] = {memo[2], sms[which]};
   // one wave of blocks on the card, at least one per candidate, and no
   // more than the pairs can keep busy
   const long long want =
@@ -881,7 +953,7 @@ int ldpc_admm_iterate(const void* q, void* v, void* z, void* yl, void* done,
   prm.eps_stop = eps_stop;
   prm.max_iter = max_iter;
   prm.iters = iters;
-  tier_kernel(plan[3])<<<static_cast<unsigned>(grid), threads,
+  pick_kernel(plan[3], k)<<<static_cast<unsigned>(grid), threads,
                          static_cast<size_t>(smem),
                          static_cast<cudaStream_t>(stream)>>>(prm);
   return cudaGetLastError();

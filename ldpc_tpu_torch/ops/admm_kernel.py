@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from .admm_ref import CHECK_EVERY, admm_iterate_ref, lane_param
+from .admm_ref import (CHECK_EVERY, WINDOW, admm_iterate_ref, lane_param,
+                        window_front)
 from .gemv_kernel import _launch
 
 ITERATE_LAUNCHES = 0
@@ -36,6 +37,7 @@ BAD = -32768           # the slot code of an entry outside the contract
 CSR_BAD = -1           # the same in the compact copy (all ones)
 SIGN = 0x8000          # a constraint code's sign bit: coefficient -1
 RUN = 1 << 31          # a variable item that covers a quad of slots
+WIN = 1 << 30          # a variable item that starts a window (k > 32)
 LEN_SHIFT, TRAIL_BIT, VAR0_BIT = 32, 48, 49   # var_info's fields
 # (threads and lanes per block, variable positions and constraint quads
 # per thread, blocks per SM the registers are bounded for, tables left in
@@ -52,7 +54,8 @@ def csr_capacity(n_var: int, n_con: int, k: int) -> int:
     """Items of a candidate's compact variable table (``var_csr``): at
     most one a slot, k a variable in groups of 32, and at most the real
     slots (three a constraint) plus what the degree-sorted groups leave
-    empty."""
+    empty. Both hold when every item is a single slot, so runs split at
+    the windows' boundaries add nothing to it."""
     cap = min(k * (-(-n_var // 32) * 32), 3 * n_con + 64 * k)
     return -(-cap // 8) * 8
 
@@ -184,9 +187,13 @@ def pack_tables(tables: dict) -> dict:
       name the constraints 4g ... 4g + 3 in turn are one item, ``RUN`` | g
       | their four signs << 16; any other slot is one item, its
       constraint | sign << 16, a padding slot the zero row 4 ceil(n_con /
-      4); ``CSR_BAD`` for a ``BAD`` code. Laid out in groups of 32
-      positions, item-major within a group, each group as long as its
-      longest variable; an overflow writes ``CSR_BAD``;
+      4); ``CSR_BAD`` for a ``BAD`` code. Past 32 slots a variable (k >
+      32) the slots fall in XLA's windows of 32 (:func:`.admm_ref.xla_sum`:
+      ``window_front(k)`` padding slots in front): no run crosses a
+      window's boundary (such four slots are four items), and the item
+      that starts a window but the first carries ``WIN``. Laid out in
+      groups of 32 positions, item-major within a group, each group as
+      long as its longest variable; an overflow writes ``CSR_BAD``;
     * ``var_info`` (P, n_var) int64 by position: the offset of its item 0
       | its items << 32 | (``var_len`` < k) << 48 | (it is variable 0) <<
       49;
@@ -244,6 +251,10 @@ def pack_tables(tables: dict) -> dict:
     start = real & (row % 4 == 0)
     for j in range(1, 4):
         start &= ahead(real, j, False) & (ahead(row, j, -1) == row + j)
+    windows = k > WINDOW
+    if windows:                    # a slot's place in its window
+        place = (s + window_front(k)) % WINDOW
+        start &= place <= WINDOW - 4
     covered = start.clone()
     for j in range(1, 4):
         covered |= torch.cat([start.new_zeros(start.shape[:-1] + (j,)),
@@ -253,6 +264,8 @@ def pack_tables(tables: dict) -> dict:
         + 8 * ahead(neg, 3, 0)
     single = torch.where(code == 0, 4 * nq, row | (neg << 16))
     item = torch.where(start, RUN | (row // 4) | (signs << 16), single)
+    if windows:
+        item = torch.where((place == 0) & (s > 0), item | WIN, item)
     item = torch.where(code == BAD, (1 << 32) - 1, item)
     n_items = is_item.sum(dim=-1)                              # (P, nv)
     order = torch.cumsum(is_item.to(i64), dim=-1) - 1

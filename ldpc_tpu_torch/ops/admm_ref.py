@@ -4,22 +4,61 @@
 JAX has no Pallas kernel here: ``decode_qp_admm`` is one ``lax.while_loop``
 whose body, ``iter_fn`` (``ldpc_tpu/decoders/admm.py:249-262``), XLA fuses
 into a few loops, and ``stream_chunk`` a second one (``:351-365``). This
-twin is the eager loop the port ran before the kernel existed, unchanged in
-its arithmetic: gathers and elementwise updates, each variable's slots
-summed in slot order and each constraint's three slots likewise, as JAX
-sums them. The decoders reach it through the wrapper on a CPU tensor; on
-the card the tests, ``chip_smoke.py`` and ``scripts/torch_admm_speed.py``
-hold the kernel to it.
+twin is the eager loop the port ran before the kernel existed: gathers and
+elementwise updates, each constraint's three slots summed in order, and
+each variable's slots and each pair's sum2 summed as XLA on the CPU sums
+a reduction (:func:`xla_sum`: in order up to 32 terms, in windows of 32
+past that), so that the twin equals JAX bit for bit. The decoders reach
+it through the wrapper on a CPU tensor; on the card the tests,
+``chip_smoke.py`` and ``scripts/torch_admm_speed.py`` hold the kernel to
+it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["CHECK_EVERY", "admm_iterate_ref", "lane_param", "stop_ties",
-           "sum2_steps"]
+__all__ = ["CHECK_EVERY", "WINDOW", "admm_iterate_ref", "lane_param",
+           "stop_ties", "sum2_steps", "window_front", "xla_sum"]
 
 CHECK_EVERY = 32       # iterations between host reads of all(done)
 EPS32 = 2.0 ** -23
+WINDOW = 32            # XLA's window for a reduction of more terms
+
+
+def window_front(k: int) -> int:
+    """The +0 terms XLA puts in front of a reduction of ``k`` > 32 terms:
+    half the padding to whole windows, rounded down (the rest goes
+    behind)."""
+    return (WINDOW * -(-k // WINDOW) - k) // 2
+
+
+def xla_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """float32 sum of ``x`` over ``dim`` in the order XLA on the CPU sums a
+    reduction (``jnp.sum`` under ``jit``). Up to 32 terms, one after
+    another from the first (XLA starts from +0, which differs only where
+    every term is -0: XLA gives +0 there). Past 32, :func:`window_front`
+    +0 terms go in front and the rest of the padding to whole windows
+    behind, each window of 32 is summed in order from +0, and the windows'
+    sums are summed by the same rule, recursively."""
+    dim %= x.dim()
+    k = x.shape[dim]
+    if k <= WINDOW:
+        acc = x.select(dim, 0)
+        for s in range(1, k):
+            acc = acc + x.select(dim, s)
+        return acc
+    front = window_front(k)
+    pad = WINDOW * -(-k // WINDOW) - k
+    if pad:
+        x = torch.cat([x.new_zeros(x.shape[:dim] + (front,)
+                                   + x.shape[dim + 1:]), x,
+                       x.new_zeros(x.shape[:dim] + (pad - front,)
+                                   + x.shape[dim + 1:])], dim=dim)
+    w = x.unflatten(dim, (-1, WINDOW))
+    acc = torch.zeros_like(w.select(dim + 1, 0))
+    for s in range(WINDOW):
+        acc = acc + w.select(dim + 1, s)
+    return xla_sum(acc, dim)
 
 
 def _pad_to_zero(idx: torch.Tensor, pad: int) -> torch.Tensor:
@@ -65,7 +104,8 @@ class _Iteration:
         # contiguous run. A padding slot (index n_con or n_var, coefficient
         # 0) reads its candidate's entry 0 instead of JAX's appended zero
         # column: its product is still a zero, and adding a zero of either
-        # sign after the first slot leaves every sum as it was
+        # sign after the first slot, or to a window's sum from +0, leaves
+        # every sum as it was
         self.vc_idx = (_pad_to_zero(var_con, self.n_con) + base * self.n_con
                        ).permute(2, 0, 1).reshape(-1)
         self.vc_coef = tables["var_coef"].permute(2, 0, 1).reshape(
@@ -87,11 +127,8 @@ class _Iteration:
     def _gather_con(self, t: torch.Tensor) -> torch.Tensor:
         bsz = t.shape[0]
         g = t.index_select(1, self.vc_idx).view(bsz, self.k, -1)
-        p = g * self.vc_coef
-        acc = p[:, 0]
-        for s in range(1, self.k):          # slot order, as JAX sums them
-            acc = acc + p[:, s]
-        return acc
+        # the windows follow the tables' width k, caps included
+        return xla_sum(g * self.vc_coef, 1)
 
     def _gather_var(self, v: torch.Tensor) -> torch.Tensor:
         bsz = v.shape[0]
@@ -115,7 +152,7 @@ class _Iteration:
         z_new = (r - yl).clamp_min(0.0)
         y_new = (yl - r).clamp_min(0.0)
         d = z_new - r
-        sum2 = (d * d).view(d.shape[0], self.p, self.n_con).sum(dim=-1)
+        sum2 = xla_sum((d * d).view(d.shape[0], self.p, self.n_con))
         v = self._keep(done, v, v_new)
         z = self._keep(done, z, z_new)
         yl = self._keep(done, yl, y_new)

@@ -26,11 +26,13 @@ from 239239239, noise from the next seed), at QP-ADMM's defaults
   by CUDA events, the median of three after a warm-up, at the sweep's
   ``--batch`` optimalH lanes and at the population's 8 x 256; and at
   ``--batch`` lanes for each of ``TIER_SHAPES``: optimalH padded to caps
-  that put it in each of the kernel's tiers, and a 640 x 1280 code of
-  row weight 6 (``wide_code``, a cascade of 3,200 / 10,240 rows), each
-  beside its operation bound (``shapes_bound_ms``: the float32 operations
-  of one iteration on the real rows, ``ops.admm_kernel.iteration_work``,
-  over 67 TFLOP/s).
+  that put it in each of the kernel's tiers, a 640 x 1280 code of row
+  weight 6 (``wide_code``, a cascade of 3,200 / 10,240 rows) and H02
+  (520 x 640, 72 slots a variable: XLA's windows of 32) at the feasible
+  alpha 0.9, mu 0.5 of ``scripts/run_h02_bench.sh``, each beside its
+  operation bound (``shapes_bound_ms``: the float32 operations of one
+  iteration on the real rows, ``ops.admm_kernel.iteration_work``, over 67
+  TFLOP/s).
 
 Runs of one tree must give equal counters at every width and runner;
 prints one line per run and exits non-zero when they differ or a FER lies
@@ -74,7 +76,7 @@ POP_CHUNK = 64
 KERNEL_ITERS = 512
 F32_OPS_PER_S = 67e12   # the H100 SXM's float32 peak outside the tensor cores
 # (label, caps) of the kernel's per-shape times: optimalH at its size and
-# padded into the second, third and global tier, then the wide code
+# padded into the second, third and global tier, the wide code and H02
 TIER_SHAPES = (("optimalH", {}),
                ("optimalH@1280/5120/32",
                 dict(n_var_cap=1280, n_con_cap=5120, k_max_cap=32)),
@@ -82,7 +84,8 @@ TIER_SHAPES = (("optimalH", {}),
                 dict(n_var_cap=2048, n_con_cap=6144, k_max_cap=72)),
                ("optimalH@9000/10000/24",
                 dict(n_var_cap=9000, n_con_cap=10000, k_max_cap=24)),
-               ("wide 640x1280", {}))
+               ("wide 640x1280", {}), ("H02", {}))
+H02_PARAMS = (0.9, 0.5)   # alpha, mu: H02's e_min of 2 fails the defaults
 
 
 def _sync(dev) -> None:
@@ -155,7 +158,9 @@ def _tier_ms(dev, seed, lanes) -> tuple[dict, dict]:
     out, bounds = {}, {}
     for label, caps in TIER_SHAPES:
         h = (wide_code() if label.startswith("wide") else
-             read_pcm(str(bench.MATRIX)))
+             read_pcm(str(bench.MATRIX.parent / "H02.txt"))
+             if label == "H02" else read_pcm(str(bench.MATRIX)))
+        alpha, mu = H02_PARAMS if label == "H02" else (1.2, 0.55)
         s = ADMMStructure.from_h(h, **caps)
         tables = admm_kernel.pack_tables(
             {k: torch.from_numpy(getattr(s, k))[None].to(dev)
@@ -165,7 +170,7 @@ def _tier_ms(dev, seed, lanes) -> tuple[dict, dict]:
         llr = noise_scales(SNR)[1] * transmit(
             cw, SNR, seed + 1, torch.arange(lanes, device=dev))
         key = f"{label} {(s.n_var, s.n_con, s.var_con.shape[1])}"
-        out[key] = _kernel_ms(tables, llr[None], h.shape[1], 1.2, 0.55)
+        out[key] = _kernel_ms(tables, llr[None], h.shape[1], alpha, mu)
         bounds[key] = _ops_bound_ms(tables, lanes)
     return out, bounds
 

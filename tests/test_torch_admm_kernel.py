@@ -7,17 +7,25 @@ iteration, ``_admm_setup(...)``'s ``iter_fn``
 it (``:351-356``), with ``torch.equal`` in v, z, yl, done and the
 iteration counts after 1, 32 and 300 iterations, on numpy inputs from a
 seed: ``data/H.txt`` and optimalH at 16 lanes, ``max_iter`` cut in the
-middle of a chunk, lanes already done at entry, per-lane (alpha, mu) and a
-population of two candidates (optimalH and H05) padded to shared caps.
-The wrapper runs the twin on a CPU tensor; the packed tables and the launch
-plan are checked here too.
+middle of a chunk, lanes already done at entry, per-lane (alpha, mu), a
+population of two candidates (optimalH and H05) padded to shared caps, and
+more than 32 slots a variable, which XLA sums in windows of 32 (H02 at
+alpha 0.9, mu 0.5, optimalH at caps of 33 and 36 slots, and a star code
+whose 1,200 slots need windows of windows); ``xla_sum`` equals a jitted
+``jnp.sum``. The wrapper runs the twin on a CPU tensor; the packed tables,
+the launch plan and an emulation of the kernel's data flow are checked
+here too.
 
 On the card (marked ``gpu``; ``python -m pytest
 tests/test_torch_admm_kernel.py -m gpu --noconftest``): the kernel against
 the twin on the same cases plus H02 at 64 lanes, the optimizer's
 population, each of the four tiers (the incumbents at caps of the third,
 a 640 x 1280 code of row weight 6 and optimalH at caps of 9,000 / 10,000
-in the global one) and the edge cases of the block's queue and padding,
+in the global one), XLA's windows past 32 slots in every tier (optimalH
+at caps of 33 and 36 in the first, H02 in the second, the incumbents at
+caps of 72 in the third, H02 at caps of 600 and a star code of 1,200
+slots a variable in the global one) and the edge cases of the block's
+queue and padding,
 after 1, 32 and 512 iterations and for whole batched decodes; and each
 pair's sum2 the same at any caps and in any tier. v, z, yl and the counts must be
 equal on every pair whose stop agrees; a pair whose stop differs passes
@@ -45,7 +53,7 @@ from ldpc_tpu_torch.ops import admm_kernel
 from ldpc_tpu_torch.ops.admm_kernel import (admm_iterate, admm_plan,
                                             pack_tables)
 from ldpc_tpu_torch.ops.admm_ref import (admm_iterate_ref, lane_param,
-                                         stop_ties)
+                                         stop_ties, xla_sum)
 
 try:  # the card's host has no JAX; only the gpu cases run there
     import jax
@@ -67,13 +75,23 @@ CASES = {
     "params": (("H",), 16, -1.0, None, None, 10000, True, False),
     "population": (("optimalH", "H05"), 16, -3.0, 1.95, 0.5, 10000, False,
                    False),
+    # more than 32 slots a variable: XLA's windows of 32. H02 (k 72) at the
+    # feasible pair of scripts/run_h02_bench.sh, and optimalH at caps of 33
+    # (front 15, back 16) and of 36 (boundaries inside quads of slots)
+    "h02_feasible": (("H02",), 16, -5.0, 0.9, 0.5, 10000, False, False),
+    "optimalH@k33": (("optimalH@k33",), 16, -3.0, 1.2, 0.55, 10000, False,
+                     False),
+    "optimalH@k36": (("optimalH@k36",), 16, -3.0, 1.2, 0.55, 10000, False,
+                     False),
 }
 # on the card also: H02; the optimizer's population (the state file's 8
 # incumbents at their caps 1280 / 5120 / 32, real counts 700-1160 /
-# 2320-4160); a batch that is no multiple of the lanes per block; lanes
-# done at entry beside lanes at -3 and +2 dB (stops far apart); and a
-# population whose padding premise fails (non-finite q, padding z and yl
-# off +0 at entry: PREMISE)
+# 2320-4160); H02 at (0.9, 0.5) in the global tier (caps of 600 slots:
+# windows past the register tiers' 511) and the star code (1,200 slots a
+# variable: XLA's second level of windows); a batch that is no multiple of
+# the lanes per block; lanes done at entry beside lanes at -3 and +2 dB
+# (stops far apart); and a population whose padding premise fails
+# (non-finite q, padding z and yl off +0 at entry: PREMISE)
 GPU_CASES = dict(CASES,
                  H02=(("H02",), 64, -3.0, 1.2, 0.55, 10000, False, False),
                  incumbents=(("incumbents",), 32, -3.0, 1.95, 0.5, 1000,
@@ -83,6 +101,9 @@ GPU_CASES = dict(CASES,
                  wide=(("wide",), 16, 2.0, 1.2, 0.55, 1000, False, False),
                  global_caps=(("optimalH@global",), 16, -3.0, 1.2, 0.55,
                               10000, False, False),
+                 h02_global=(("H02@k600",), 16, -5.0, 0.9, 0.5, 10000,
+                             False, False),
+                 star=(("star",), 16, -3.0, 1.2, 0.55, 1000, False, False),
                  ragged=(("optimalH",), 13, -3.0, 1.2, 0.55, 10000, False,
                          False),
                  mixed=(("optimalH",), 16, (-3.0, 2.0), 1.2, 0.55, 10000,
@@ -95,7 +116,9 @@ GPU_CASES = dict(CASES,
 # that needs 118 KB of v, t and b beside 253 KB of tables)
 CAPS = {"tier2": dict(n_var_cap=2048, n_con_cap=6144, k_max_cap=72),
         "global": dict(n_var_cap=9000, n_con_cap=10000, k_max_cap=24),
-        "caps": dict(n_var_cap=1280, n_con_cap=5120, k_max_cap=32)}
+        "caps": dict(n_var_cap=1280, n_con_cap=5120, k_max_cap=32),
+        "k33": dict(k_max_cap=33), "k36": dict(k_max_cap=36),
+        "k600": dict(k_max_cap=600)}
 # the premise case's lanes: q NaN, q +inf, and at entry a padding z of
 # 0.5, a padding yl of NaN, a padding yl of -0.0
 PREMISE = {"nan_q": 0, "inf_q": 1, "pad_z": 2, "pad_yl": 3, "neg_yl": 4}
@@ -132,7 +155,7 @@ def _case(name, cases=CASES):
     mats, lanes, snr, alpha, mu, max_iter, per_lane, pre_done = cases[name]
     mat, at = mats[0].split("@") if "@" in mats[0] else (mats[0], "")
     hs = (_incumbents() if mat == "incumbents" else [_wide()]
-          if mat == "wide" else
+          if mat == "wide" else [_star()] if mat == "star" else
           [read_pcm(os.path.join(DATA, f"{m.split('@')[0]}.txt"))
            for m in mats])
     caps = {}
@@ -247,6 +270,17 @@ def _wide():
     return QCMatrix(160, present, shifts).to_dense()
 
 
+def _star():
+    """300 checks of degree 3 that all hold variable 0 (check i: 0, 2i + 1,
+    2i + 2): a cascade of (601, 1200, 1200) whose variable 0 fills 1,200
+    slots, past the 1,024 of one level of XLA's windows."""
+    h = np.zeros((300, 601), np.uint8)
+    h[:, 0] = 1
+    h[np.arange(300), 2 * np.arange(300) + 1] = 1
+    h[np.arange(300), 2 * np.arange(300) + 2] = 1
+    return h
+
+
 def _tables(structs, device):
     return {k: torch.from_numpy(np.stack([getattr(s, k) for s in structs]))
             .to(device) for k in TABLES}
@@ -274,6 +308,49 @@ def test_twin_equals_jax(name, iters):
         assert torch.equal(got[4][::3], torch.full_like(got[4][::3], 7))
     if iters == 300 and name != "cut":   # both stops inside 300
         assert 0 < int(got[3].sum()) < got[3].numel()
+
+
+@pytest.mark.parametrize("iters", [1, 32])
+def test_twin_equals_jax_past_1024_slots(iters):
+    """The star code (1,200 slots a variable) sums its windows' sums in
+    windows again, as XLA does: the twin equals JAX's loop with
+    ``torch.equal``."""
+    structs, llrs, alpha, mu, max_iter, done, it = _case("star", GPU_CASES)
+    assert structs[0].var_con.shape[1] == 1200
+    start, fns = _jax_start(structs, llrs, alpha, mu)
+    want = _jax_iterate(structs, fns, start, done, it, max_iter, iters)
+    q, v, z, yl = (torch.from_numpy(x) for x in start)
+    got = admm_iterate_ref(q, v, z, yl, torch.from_numpy(done),
+                           torch.from_numpy(it), _tables(structs, CPU),
+                           torch.from_numpy(alpha), torch.from_numpy(mu),
+                           EPS, max_iter, iters)
+    for key, g, w in zip(("v", "z", "yl", "done", "it"), got, want):
+        assert torch.equal(g, torch.from_numpy(w)), key
+
+
+@pytest.mark.parametrize("shape,kind", [
+    ((16, 126, 24), "coef"), ((16, 126, 32), "coef"), ((16, 126, 33), "coef"),
+    ((16, 126, 36), "coef"), ((16, 126, 47), "coef"), ((16, 126, 72), "coef"),
+    ((16, 126, 100), "coef"), ((8, 1536), "square"), ((8, 2320), "square"),
+    ((8, 4520), "square"), ((8, 5120), "square")])
+def test_xla_sum_is_jax_sum(shape, kind):
+    """``xla_sum`` equals a jitted ``jnp.sum`` over the last axis on the
+    CPU bit for bit (as int32): products of coefficients in {-1, 0, 1}
+    (QP-ADMM's slot sums), and rounded squares over rows as long as sum2's
+    (two levels of windows past 1,024)."""
+    rng = np.random.default_rng(sum(shape))
+    if kind == "coef":
+        a = rng.standard_normal(shape).astype(np.float32)
+        b = rng.integers(-1, 2, shape).astype(np.float32)
+        want = jax.jit(lambda x, y: jnp.sum(x * y, axis=-1))(a, b)
+        got = xla_sum(torch.from_numpy(a) * torch.from_numpy(b))
+    else:
+        a = (rng.standard_normal(shape) * 1e-3).astype(np.float32)
+        want = jax.jit(lambda x: jnp.sum(x * x, axis=-1))(a)
+        t = torch.from_numpy(a)
+        got = xla_sum(t * t)
+    assert torch.equal(got.view(torch.int32),
+                       torch.from_numpy(np.array(want)).view(torch.int32))
 
 
 def test_wrapper_runs_the_twin_on_the_cpu():
@@ -404,14 +481,14 @@ def test_plan_takes_every_shape_of_one_block_a_pair(k):
 
 def _structs(name):
     """The structures of a compact-table case: one code at its exact
-    size, at the optimizer's caps, or the state file's chain incumbents at
-    their bucketed caps."""
+    size or at caps (``name@caps``), or the state file's chain incumbents
+    at their bucketed caps."""
     if name == "incumbents":
         hs = _incumbents()
         caps = _caps_for(hs)
     else:
         mat, at = name.split("@") if "@" in name else (name, "")
-        hs = [_wide() if mat == "wide" else
+        hs = [_wide() if mat == "wide" else _star() if mat == "star" else
               read_pcm(os.path.join(DATA, f"{mat}.txt"))]
         caps = CAPS[at] if at else {}
     return hs, [ADMMStructure.from_h(h, **caps) for h in hs]
@@ -423,28 +500,35 @@ def _decode_code(c):
     return c & 0x7fff, (c & admm_kernel.SIGN) != 0
 
 
-def _slots(items):
+def _slots(items, window=False):
     """The (constraint row, negative) of each slot that 32-bit variable
-    items cover, in slot order: a quad item four rows 4g ... 4g + 3."""
-    out = []
+    items cover, in slot order: a quad item four rows 4g ... 4g + 3. With
+    ``window``, each slot's window instead: the items marked ``WIN`` so far
+    (a slot's window counts from the first one the variable has)."""
+    out, w = [], 0
     for c in (int(x) & 0xffffffff for x in items):
+        w += bool(c & admm_kernel.WIN)
         if c & admm_kernel.RUN:
             g, signs = c & 0xffff, (c >> 16) & 0xf
-            out += [(4 * g + j, bool((signs >> j) & 1)) for j in range(4)]
+            out += [w if window else (4 * g + j, bool((signs >> j) & 1))
+                    for j in range(4)]
         else:
-            out.append((c & 0xffff, bool((c >> 16) & 1)))
+            out.append(w if window else (c & 0xffff, bool((c >> 16) & 1)))
     return out
 
 
 @pytest.mark.parametrize("name", ["H", "optimalH", "H02", "optimalH@caps",
-                                  "incumbents", "wide"])
+                                  "incumbents", "wide", "optimalH@k36"])
 def test_pack_tables_compact(name):
     """The compact copy names the padded tables' slots: the real counts are
     the cascade's, ``var_pos`` is a permutation with the real variables
     first by degree, each real variable's CSR slots (in its group of 32,
     slot-major) decode to its slots in order, the constraints' codes to
     theirs over the positions, and ``var_info`` holds each position's
-    offset, length, trailing-padding and variable-0 bits."""
+    offset, length, trailing-padding and variable-0 bits. Past 32 slots
+    (H02's 72, optimalH at caps of 36) each slot lies in its window of
+    XLA's, no run crosses a window's boundary, and ``WIN`` marks exactly
+    the items that start a window; at 32 or fewer no item has ``WIN``."""
     hs, structs = _structs(name)
     p = pack_tables(_tables(structs, CPU))
     n_var, k = structs[0].var_con.shape
@@ -467,6 +551,9 @@ def test_pack_tables_compact(name):
         info = p["var_info"][c]
         base, count = info & 0xffffffff, (info >> 32) & 0xffff
         csr = p["var_csr"][c]
+        if k <= 32:
+            assert not bool((csr & admm_kernel.WIN).any())
+        front = (-(-k // 32) * 32 - k) // 2
         runs = 0
         for pos in range(nv_real):
             i = int(order[pos])
@@ -480,6 +567,9 @@ def test_pack_tables_compact(name):
             want = [(int(r) if f else 4 * nq, bool(f < 0)) for r, f in
                     zip(s.var_con[i, :n_slots], s.var_coef[i, :n_slots])]
             assert got == want, (pos, i)
+            if k > 32:
+                assert _slots(items, window=True) == [
+                    (j + front) // 32 for j in range(n_slots)], (pos, i)
         if name in ("optimalH", "optimalH@caps", "incumbents"):
             assert 4 * runs == int(real.sum())    # every slot in a quad
         rows, neg = _decode_code(p["con_code4"][c, :n_con, :3])
@@ -528,9 +618,12 @@ def test_pack_tables_flags_bad_and_overflow():
 
 def _emulate(tables, q, z, yl, alpha, mu, iters):
     """The kernel's data flow on the CPU from the compact copy alone, with
-    no pair stopping: the real positions' slot sums in CSR order, the
-    zero rows, the real constraint rows only, and each padding variable's v
-    in closed form from the last t[0] * 0. Returns (v, z, yl)."""
+    no pair stopping: the real positions' slot sums in CSR order (past 32
+    slots a variable, each window from +0 as the items' ``WIN`` marks
+    start them, and every 32 windows, counted from the front padding of
+    XLA's second level, a sum of their own), the zero rows, the real
+    constraint rows only, and each padding variable's v in closed form
+    from the last t[0] * 0. Returns (v, z, yl)."""
     p_count, n_var = tables["var_pos"].shape
     n_con, k = tables["b"].shape[1], tables["var_con"].shape[2]
     bsz = q.shape[0]
@@ -542,8 +635,9 @@ def _emulate(tables, q, z, yl, alpha, mu, iters):
         order = tables["var_pos"][c].long()
         info = tables["var_info"][c]
         base, count = info & 0xffffffff, (info >> 32) & 0xffff
-        per_pos = [_slots(tables["var_csr"][c][base[pos] + 32 * torch.arange(
-            int(count[pos]))]) for pos in range(nv_real)]
+        items = [tables["var_csr"][c][base[pos] + 32 * torch.arange(
+            int(count[pos]))] for pos in range(nv_real)]
+        per_pos = [_slots(i) for i in items]
         width = max(len(x) for x in per_pos)
         live = torch.tensor([[j < len(x) for j in range(width)]
                              for x in per_pos])
@@ -552,6 +646,11 @@ def _emulate(tables, q, z, yl, alpha, mu, iters):
         neg = torch.tensor([[x[min(j, len(x) - 1)][1] for j in range(width)]
                             for x in per_pos])
         rows = torch.where(rows == 4 * -(-n_con // 4), n_con, rows)
+        wid = torch.tensor([[x[min(j, len(x) - 1)] for j in range(width)]
+                            for x in (_slots(i, window=True)
+                                      for i in items)])
+        windows = -(-k // 32)
+        front2 = (-(-windows // 32) * 32 - windows) // 2
         crow, cneg = _decode_code(tables["con_code4"][c, :n_con, :3])
         b, e = tables["b"][c], tables["e"][c]
         qc = q[:, c * n_var:(c + 1) * n_var]
@@ -574,9 +673,23 @@ def _emulate(tables, q, z, yl, alpha, mu, iters):
             tz = t[:, n_con].clone()
             g = t[:, rows]
             g = torch.where(neg, -g, g)
-            acc = g[:, :, 0]
-            for s_ in range(1, width):
-                acc = torch.where(live[:, s_], acc + g[:, :, s_], acc)
+            if k <= 32:
+                acc = g[:, :, 0]
+                for s_ in range(1, width):
+                    acc = torch.where(live[:, s_], acc + g[:, :, s_], acc)
+            else:    # windows from +0, and windows of windows past 32
+                acc, lvl2, win = (torch.zeros_like(g[:, :, 0])
+                                  for _ in range(3))
+                for s_ in range(width):
+                    new = live[:, s_] & (wid[:, s_] > wid[:, s_ - 1]) \
+                        if s_ else torch.zeros_like(live[:, 0])
+                    lvl2 = torch.where(new, lvl2 + win, lvl2)
+                    win = torch.where(new, 0.0, win)
+                    top = new & ((wid[:, s_] + front2) % 32 == 0)
+                    acc = torch.where(top, acc + lvl2, acc)
+                    lvl2 = torch.where(top, 0.0, lvl2)
+                    win = torch.where(live[:, s_], win + g[:, :, s_], win)
+                acc = acc + (lvl2 + win)
             acc = torch.where(trail, acc + tz[:, None], acc)
             sv[:, :nv_real] = ((qh + acc) * inv).clamp(0.0, 1.0)
             sv[:, n_var] = sv[:, var0] * 0.0
@@ -592,7 +705,8 @@ def _emulate(tables, q, z, yl, alpha, mu, iters):
         v = torch.empty((bsz, n_var))
         v[:, order[:nv_real]] = sv[:, :nv_real]
         pad = order[nv_real:]
-        acc = tz[:, None] + tz[:, None] if k > 1 else tz[:, None]
+        acc = (torch.zeros_like(tz[:, None]) if k > 32 else
+               tz[:, None] + tz[:, None] if k > 1 else tz[:, None])
         v[:, pad] = ((qc[:, pad] + half + acc) * inv_of(pad)).clamp(0.0, 1.0)
         outs.append((v, zc, yc))
     return tuple(torch.cat([o[j] for o in outs], dim=1) for j in range(3))
@@ -600,13 +714,15 @@ def _emulate(tables, q, z, yl, alpha, mu, iters):
 
 @pytest.mark.parametrize("iters", [1, 40])
 @pytest.mark.parametrize("name", ["H", "params", "population", "incumbents",
-                                  "wide"])
+                                  "wide", "h02_feasible", "optimalH@k33",
+                                  "optimalH@k36", "star"])
 def test_compact_tables_drive_the_twin(name, iters):
     """The kernel's data flow, emulated on the CPU from the compact copy
-    alone (padding rows skipped, padding variables in closed form), equals
-    the twin in v, z and yl with ``torch.equal`` after 1 and 40 iterations
-    with no pair stopping: the packing and the padding argument hold."""
-    if name in ("incumbents", "wide"):
+    alone (padding rows skipped, padding variables in closed form, windows
+    past 32 slots), equals the twin in v, z and yl with ``torch.equal``
+    after 1 and 40 iterations with no pair stopping: the packing and the
+    padding argument hold."""
+    if name in ("incumbents", "wide", "star"):
         hs, structs = _structs(name)
         n = hs[0].shape[1]
         llrs = np.stack([_llrs(h, 8, -3.0, 40 + i) for i, h in
@@ -813,16 +929,19 @@ def test_sum2_is_the_pairs_alone(cuda):
 @pytest.mark.gpu
 def test_sum2_is_the_same_at_any_caps(cuda):
     """One code's pairs at their exact size (the first tier), padded to
-    the optimizer's caps (the second), to caps of the third tier and of the
-    global tier: sum2 after 1 and after 24 iterations, and the state of
-    the real rows, are the same bits in all four (sum2's butterfly over
-    the quads does not see the tier, and padding adds +0)."""
+    the optimizer's caps (the second), to caps of the third tier (at 32
+    slots a variable: past 32 the slot sums follow XLA's windows over the
+    tables' width, as JAX's do) and of the global tier: sum2 after 1 and
+    after 24 iterations, and the state of the real rows, are the same bits
+    in all four (sum2's butterfly over the quads does not see the tier,
+    and padding adds +0)."""
     h = read_pcm(os.path.join(DATA, "optimalH.txt"))
     n_var, n_con = _structure_caps(h)[:2]
     llrs = torch.from_numpy(_llrs(h, 16, -3.0, 40)).to(cuda)
     never = (float("-inf"), 2 ** 31 - 1)
     tiers, runs = [], []
-    for caps in ({}, CAPS["caps"], CAPS["tier2"], CAPS["global"]):
+    for caps in ({}, CAPS["caps"], dict(CAPS["tier2"], k_max_cap=32),
+                 CAPS["global"]):
         s = ADMMStructure.from_h(h, **caps)
         tiers.append(admm_plan(s.n_var, s.n_con,
                                s.var_con.shape[1])["tier"])
