@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.gf2_gauss import GAUSS_BACKENDS, calculate_gauss_batched
+from ..utils.profiling import spanned
 from .alp import _AdaptiveLPBase
 
 __all__ = ["AGCALPDecoder"]
@@ -57,6 +58,7 @@ class AGCALPDecoder(_AdaptiveLPBase):
         self.gauss_margin = float(gauss_margin)
         self.gauss_backend = gauss_backend
 
+    @spanned("agc.gauss")
     def _gauss_sup(self, x, need=None):
         he = calculate_gauss_batched(self.h, x, self.gauss_eps, active=need,
                                      backend=self.gauss_backend)

@@ -21,14 +21,26 @@ added iff  sum_V (1-u) + sum_{supp \\ V} u < 1 - tol  (``alp.h:63-94``).
 JAX's ``while_loop``, ``lax.switch`` and ``lax.cond`` become Python
 control flow. Each round makes three host reads (each waits for the device):
 the append's ``nonzero``, the row tier (the largest working lane's cut
-count, read with the number of working lanes), and the loop's ``all(done)``;
-the PDHG solver makes one per chunk after its first, the IPM one per chunk.
-With the Gaussian cut source (AGC-ALP) a round makes one more, whether any
-lane needs the elimination (JAX's ``lax.cond(any(need))``), and, when one
-does, a fourth, the second append's ``nonzero``. Streamed, a round makes two
-more: the chunk's ``all(done)`` and the refill's ``nonzero``.
+count, read with the number of working lanes), and the loop's
+``all(done)``, which reads once more after the last round. The round's
+solve adds its own: the fused PDHG solver one per chunk it runs (the read
+before each later chunk and the one that stops the loop; one fewer when it
+runs its whole budget), the plain one a read more, the IPM one per chunk
+and one more. A batch runs until its slowest lane stops, so a batch's
+reads follow its slowest lane's rounds, not the mean. With the Gaussian
+cut source (AGC-ALP) a round makes one more, whether any lane needs the
+elimination (JAX's ``lax.cond(any(need))``), and, when one does, a fourth,
+the second append's ``nonzero``. Streamed, each chunk reads ``all(done)``
+and the refill's ``nonzero``, and a chunk after every lane finished reads
+nothing else.
+
+:data:`COUNTS` counts the lanes the rounds hold and solve, and each of
+these reads at its site; the spans of :mod:`..utils.profiling` name
+each step while a profiler records.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -37,10 +49,18 @@ from torch import nn
 from ..codes.gf2 import is_codeword
 from ..ops.ipm_solver import ipm_box_lp
 from ..ops.lp_solver import pdhg_box_lp, pdhg_box_lp_fused
+from ..utils.profiling import span, spanned
 from .base import DecodeResult, resolve_device
 
-__all__ = ["ALPDecoder", "alp_cut_candidates", "alp_tables", "append_cuts",
-           "cut_hashes"]
+__all__ = ["ALPDecoder", "COUNTS", "alp_cut_candidates", "alp_tables",
+           "append_cuts", "cut_hashes"]
+
+# the cut loop's work and host reads, summed over every decode of the
+# process: ``lanes`` (the batch, once a round); ``solve_lanes`` (the
+# round's working lanes, read with the tier); ``reads.<site>`` for each host
+# read: ``append``, ``tier`` (once a round), ``done``, and AGC-ALP's
+# ``need`` and ``append_g``
+COUNTS: Counter = Counter()
 
 _HASH_SEED = 0x5DEECE66
 _PERT_SEED = 0xC0FFEE
@@ -60,6 +80,7 @@ def alp_tables(n: int):
     return pert_dir, w1, w2
 
 
+@spanned("alp.cut_search")
 def alp_cut_candidates(sup: torch.Tensor, u: torch.Tensor, cut_tol: float):
     """Vectorised AddRowsALP cut search.
 
@@ -85,6 +106,7 @@ def alp_cut_candidates(sup: torch.Tensor, u: torch.Tensor, cut_tol: float):
     return rows, rhs, add
 
 
+@spanned("alp.cut_search")
 def cut_hashes(rows: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
     """Two independent wraparound-int32 hashes of signed cut rows
     (B, m, n) -> ((B, m), (B, m)). Identical V-sets hash identically.
@@ -97,6 +119,7 @@ def cut_hashes(rows: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
                  for w in (w1, w2))
 
 
+@spanned("alp.append")
 def append_cuts(a_buf, rhs_buf, count, rows, rhs, add,
                 hash_state=None, cand_hashes=None):
     """Masked append of candidate cuts into the per-lane buffers.
@@ -114,7 +137,7 @@ def append_cuts(a_buf, rhs_buf, count, rows, rhs, add,
     Unlike JAX's functional update, the buffers ``a_buf``, ``rhs_buf`` and
     the hash buffers are written in place (and returned). Returns (a_buf,
     rhs_buf, count, n_added, n_dup, n_dropped, hash_state); the counts are
-    (B,) int32.
+    (B,) int32. The ``nonzero`` of the kept candidates is a host read.
     """
     bsz, cap = a_buf.shape[:2]
     n_dup = torch.zeros((bsz,), dtype=torch.int32, device=count.device)
@@ -276,9 +299,10 @@ class _AdaptiveLPBase(nn.Module):
             [self.capacity]
         return tiers[sum(r_max > t for t in tiers[:-1])]
 
-    def _solve(self, c, a_buf, rhs_buf, x, y, act, t: int):
+    def _solve(self, c, a_buf, rhs_buf, x, y, act, t: int, n_act: int):
         """Solve min c.x s.t. a_buf[:, :t] x <= rhs_buf[:, :t], box, with the
-        decoder's backend. Returns (x, y[:, :t], err)."""
+        decoder's backend, for the ``n_act`` lanes of ``act``. Returns
+        (x, y[:, :t], err)."""
         if self.lp_backend == "ipm":
             warm = {"x0": x, "y0": y[:, :t]} if self.ipm_warm else {}
             return ipm_box_lp(c, a_buf[:, :t], rhs_buf[:, :t],
@@ -293,8 +317,9 @@ class _AdaptiveLPBase(nn.Module):
                   stall_ratio=self.stall_ratio)
         if self.lp_backend == "xla" or t % 128 != 0:
             return pdhg_box_lp(*args, **kw)
-        return pdhg_box_lp_fused(*args, **kw)
+        return pdhg_box_lp_fused(*args, lanes=n_act, **kw)
 
+    @spanned("alp.round")
     def _round_body(self, state: dict) -> dict:
         """One cut round (search + append + re-solve) over a state dict.
         The buffers in ``state`` are updated in place."""
@@ -315,6 +340,7 @@ class _AdaptiveLPBase(nn.Module):
             state["a"], state["rhs"], count, rows, rhs, add_h,
             hash_state=(state["h1"], state["h2"]),
             cand_hashes=cut_hashes(rows, self.hash_w1, self.hash_w2))
+        COUNTS["reads.append"] += 1
         dropped = state["dropped"] + drop_h
         n_added, cum_g = n_h, state["cum_g"]
         if self.use_gauss:
@@ -322,6 +348,7 @@ class _AdaptiveLPBase(nn.Module):
             # reference's short-circuit, agc_alp.h:99-101); one host read
             # skips the elimination when no lane needs it
             need = eligible & (n_h == 0)
+            COUNTS["reads.need"] += 1
             if bool(need.any()):
                 g_sup = self._gauss_sup(x_s, need)
                 # gauss_margin relaxes the threshold of the dense gauss rows
@@ -332,6 +359,7 @@ class _AdaptiveLPBase(nn.Module):
                     g_add & need[:, None], hash_state=hstate,
                     cand_hashes=cut_hashes(g_rows, self.hash_w1,
                                            self.hash_w2))
+                COUNTS["reads.append_g"] += 1
                 n_added = n_h + n_g
                 cum_g = cum_g + n_g
                 dropped = dropped + drop_g
@@ -341,15 +369,19 @@ class _AdaptiveLPBase(nn.Module):
         stalled = viol >= self.stall_ratio * viol_prev
         done = done | ((n_added == 0) & ((viol <= self.lp_tol) | stalled))
         act = ~done
-        r_max, n_act = torch.stack([torch.where(done, 0, count).max(),
-                                    act.sum(dtype=torch.int32)]).tolist()
+        with span("alp.tier_read"):
+            r_max, n_act = torch.stack([torch.where(done, 0, count).max(),
+                                        act.sum(dtype=torch.int32)]).tolist()
+        COUNTS["reads.tier"] += 1
+        COUNTS["lanes"] += done.shape[0]
+        COUNTS["solve_lanes"] += n_act
         if n_act > 0:
             # re-solve on the smallest row tier covering every working
             # lane's cuts (rows >= count are zero and would only cost
             # bandwidth); frozen lanes keep their x, y
             t = self._tier(r_max)
             x_new, y_t, viol_new = self._solve(c, a_buf, rhs_buf, x, y, act,
-                                               t)
+                                               t, n_act)
             keep = done[:, None]
             x = torch.where(keep, x, x_new)
             y[:, :t] = torch.where(keep, y[:, :t], y_t)
@@ -371,10 +403,16 @@ class _AdaptiveLPBase(nn.Module):
             raise ValueError(f"llrs on {llrs.device}, decoder on "
                              f"{self.h.device}")
 
+    @spanned("alp.done_read")
+    def _all_done(self, st: dict) -> bool:
+        """Whether every lane is done: one host read."""
+        COUNTS["reads.done"] += 1
+        return bool(st["done"].all())
+
     def _run_loop(self, llrs: torch.Tensor) -> dict:
         self._check_device(llrs)
         state = self._init_state(llrs)
-        while not bool(state["done"].all()):
+        while not self._all_done(state):
             state = self._round_body(state)
         return state
 
@@ -386,6 +424,7 @@ class _AdaptiveLPBase(nn.Module):
         return DecodeResult(bits=bits, success=success,
                             iterations=st["rounds"], dropped=st["dropped"])
 
+    @spanned("alp.decode")
     def decode_batch(self, llrs: torch.Tensor) -> DecodeResult:
         """(B, n) float32 LLRs on the decoder's device -> DecodeResult
         (``iterations`` = cut rounds worked, ``dropped`` = cuts lost to
@@ -404,7 +443,7 @@ class _AdaptiveLPBase(nn.Module):
     def stream_chunk(self, st: dict) -> dict:
         """One cut round; nothing when every lane is done (one host
         read)."""
-        if bool(st["done"].all()):
+        if self._all_done(st):
             return st
         return self._round_body(st)
 

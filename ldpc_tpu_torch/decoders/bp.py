@@ -22,6 +22,7 @@ from torch import nn
 from ..codes.graph import CodeGraph
 from ..ops import bp_kernel
 from ..ops.bp_ref import bp_decode_ref
+from ..utils.profiling import spanned
 from .base import DecodeResult, resolve_device
 
 __all__ = ["BPDecoder"]
@@ -53,6 +54,7 @@ class BPDecoder(nn.Module):
             self.register_buffer(name, torch.from_numpy(
                 np.ascontiguousarray(getattr(g, name))).to(device))
 
+    @spanned("bp.decode")
     def decode_batch(self, llrs: torch.Tensor) -> DecodeResult:
         """(B, n) float32 LLRs on the decoder's device -> DecodeResult."""
         if llrs.device != self.row_col.device:

@@ -43,6 +43,7 @@ and every rank reports the slowest rank's window.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -51,14 +52,23 @@ import torch
 from ..channel.awgn import noise_scales, snr_table, transmit, transmit_lanes
 from ..codes.gf2 import is_codeword
 from ..decoders.base import DecodeResult, Decoder, resolve_device
+from ..utils.profiling import span, spanned
 
-__all__ = ["COUNTERS", "ExperimentResult", "channel_step", "count_step",
-           "make_experiment_step", "make_multi_snr_step", "run_experiment",
-           "run_multi_snr_experiment", "run_streaming_experiment"]
+__all__ = ["COUNTERS", "COUNTS", "ExperimentResult", "channel_step",
+           "count_step", "make_experiment_step", "make_multi_snr_step",
+           "run_experiment", "run_multi_snr_experiment",
+           "run_streaming_experiment"]
 
 # order of the counters in the (8,) int64 vectors the steps return
 COUNTERS = ("total", "correct", "pseudo", "sum_hamming", "sum_hamming_ok",
             "sum_hamming_wrong", "sum_iterations", "sum_dropped")
+
+# the runners' work and host reads, summed over every run of the process:
+# ``batches`` handed to ``decode_batch`` (warm-up included), and
+# ``reads.result`` (the counters' read at a run's end), ``reads.poll`` (the
+# streamed runner's active-lane count) and ``reads.refill`` (the streamed
+# refill's ``nonzero``)
+COUNTS: Counter = Counter()
 
 
 @dataclass
@@ -139,8 +149,13 @@ def count_step(decoder: Decoder, h: torch.Tensor, codewords: torch.Tensor,
                y: torch.Tensor, snr: float) -> torch.Tensor:
     """Decode y and classify each frame; returns the batch's counters as an
     (8,) int64 tensor in :data:`COUNTERS` order, on y's device."""
-    res = decoder.decode_batch(noise_scales(snr)[1] * y)
-    return _lane_counters(h, res, codewords, _hamming(codewords, y)).sum(dim=1)
+    with span("harness.channel"):
+        llrs = noise_scales(snr)[1] * y
+    COUNTS["batches"] += 1
+    res = decoder.decode_batch(llrs)
+    with span("harness.count"):
+        return _lane_counters(h, res, codewords,
+                              _hamming(codewords, y)).sum(dim=1)
 
 
 def make_experiment_step(decoder: Decoder, h, snr: float, seed: int,
@@ -150,7 +165,8 @@ def make_experiment_step(decoder: Decoder, h, snr: float, seed: int,
     h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
 
     def step(codewords, trial_idx):
-        y = channel_step(codewords, trial_idx, snr, seed)
+        with span("harness.channel"):
+            y = channel_step(codewords, trial_idx, snr, seed)
         return count_step(decoder, h_dev, codewords, y, snr)
 
     return step
@@ -162,10 +178,13 @@ def _sync(device: torch.device) -> None:
 
 
 def _result(counters: torch.Tensor, time_sec: float) -> ExperimentResult:
-    return ExperimentResult(**dict(zip(COUNTERS, counters.tolist())),
-                            time_sec=time_sec)
+    with span("harness.sync"):
+        values = counters.tolist()
+    COUNTS["reads.result"] += 1
+    return ExperimentResult(**dict(zip(COUNTERS, values)), time_sec=time_sec)
 
 
+@spanned("harness.sync")
 def _start_clock(device: torch.device, sharding) -> float:
     """Synchronised start: this device idle and, under a sharding, every
     rank at the barrier."""
@@ -175,6 +194,7 @@ def _start_clock(device: torch.device, sharding) -> float:
     return time.perf_counter()
 
 
+@spanned("harness.sync")
 def _stop_clock(counters: torch.Tensor, device: torch.device, sharding,
                 t_start: float) -> float:
     """Sums ``counters`` over the ranks in place and returns the seconds
@@ -212,6 +232,14 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
         return run_streaming_experiment(decoder, h, codewords, snr, seed,
                                         batch_size=batch_size, device=device,
                                         warmup=warmup, sharding=sharding)
+    return _run_batches(decoder, h, codewords, snr, seed, batch_size, device,
+                        warmup, sharding)
+
+
+@spanned("harness.block")
+def _run_batches(decoder, h, codewords, snr, seed, batch_size, device,
+                 warmup, sharding) -> ExperimentResult:
+    """:func:`run_experiment`'s loop over batches."""
     device = resolve_device(device if sharding is None else sharding.device)
     cw = torch.as_tensor(codewords, dtype=torch.uint8).to(device)
     t_total = cw.shape[0]
@@ -234,6 +262,7 @@ def run_experiment(decoder: Decoder, h, codewords, snr: float, seed: int,
     return _result(acc, _stop_clock(acc, device, sharding, t_start))
 
 
+@spanned("harness.block")
 def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
                              batch_size: int = 256, fetch_every: int = 4,
                              device: torch.device | str = "cuda",
@@ -280,6 +309,7 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
     h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
     inv_var = noise_scales(snr)[1]
 
+    @spanned("harness.channel")
     def make_lane(idx):
         """(B,) stream positions -> (llrs, codewords, channel Hamming) of
         trials ``first + idx``."""
@@ -303,24 +333,27 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
     def step(carry):
         st, idx, cwb, hd, active, consumed, counters = carry
         st = decoder.stream_chunk(st)
-        fin = decoder.stream_done(st) & active
-        lanes = _lane_counters(h_dev, decoder.stream_finish(st), cwb, hd)
-        counters = counters + (lanes * fin).sum(dim=1)
+        with span("harness.count"):
+            fin = decoder.stream_done(st) & active
+            lanes = _lane_counters(h_dev, decoder.stream_finish(st), cwb, hd)
+            counters = counters + (lanes * fin).sum(dim=1)
         # refill the finished slots with the next trials of the stream
-        rank = fin.to(torch.int64).cumsum(0)
-        new_idx = consumed + rank - 1
-        idx = torch.where(fin, new_idx, idx)
-        active = torch.where(fin, new_idx < t_total, active)
-        consumed = consumed + rank[-1]
-        llrs, cwb_new, hd_new = make_lane(idx)
-        lanes = fin.nonzero().squeeze(1)          # one host read per chunk
-        if lanes.numel():
-            fresh = decoder.stream_init(llrs.index_select(0, lanes))
-            for key, val in fresh.items():
-                st[key].index_copy_(0, lanes, val)
-        cwb = torch.where(fin[:, None], cwb_new, cwb)
-        hd = torch.where(fin, hd_new, hd)
-        st["done"] = st["done"] | ~active     # inactive lanes stay frozen
+        with span("harness.refill"):
+            rank = fin.to(torch.int64).cumsum(0)
+            new_idx = consumed + rank - 1
+            idx = torch.where(fin, new_idx, idx)
+            active = torch.where(fin, new_idx < t_total, active)
+            consumed = consumed + rank[-1]
+            llrs, cwb_new, hd_new = make_lane(idx)
+            lanes = fin.nonzero().squeeze(1)      # one host read per chunk
+            COUNTS["reads.refill"] += 1
+            if lanes.numel():
+                fresh = decoder.stream_init(llrs.index_select(0, lanes))
+                for key, val in fresh.items():
+                    st[key].index_copy_(0, lanes, val)
+            cwb = torch.where(fin[:, None], cwb_new, cwb)
+            hd = torch.where(fin, hd_new, hd)
+            st["done"] = st["done"] | ~active  # inactive lanes stay frozen
         return (st, idx, cwb, hd, active, consumed, counters), active.sum()
 
     if warmup:
@@ -331,7 +364,10 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
     while t_total:
         for _ in range(fetch_every):
             carry, n_active = step(carry)
-        if int(n_active) == 0:
+        with span("harness.sync"):
+            n_active = int(n_active)
+        COUNTS["reads.poll"] += 1
+        if n_active == 0:
             break
         now = time.perf_counter()
         if now - t_poll < 0.25 and fetch_every < 128:
@@ -354,16 +390,22 @@ def make_multi_snr_step(decoder: Decoder, h, snrs, seed: int,
     s_count = len(sigmas)
 
     def step(codewords, trial_idx, snr_id):
-        y = transmit_lanes(codewords, sigmas[snr_id], seed, trial_idx)
-        res = decoder.decode_batch(inv_vars[snr_id][:, None] * y)
-        lanes = _lane_counters(h_dev, res, codewords, _hamming(codewords, y))
-        out = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
-                          device=lanes.device)
-        return out.index_add_(1, snr_id, lanes)
+        with span("harness.channel"):
+            y = transmit_lanes(codewords, sigmas[snr_id], seed, trial_idx)
+            llrs = inv_vars[snr_id][:, None] * y
+        COUNTS["batches"] += 1
+        res = decoder.decode_batch(llrs)
+        with span("harness.count"):
+            lanes = _lane_counters(h_dev, res, codewords,
+                                   _hamming(codewords, y))
+            out = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
+                              device=lanes.device)
+            return out.index_add_(1, snr_id, lanes)
 
     return step
 
 
+@spanned("harness.block")
 def run_multi_snr_experiment(decoder: Decoder, h, codewords, snrs,
                              seed: int, batch_size: int = 2048,
                              device: torch.device | str = "cuda",

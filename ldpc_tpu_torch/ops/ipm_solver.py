@@ -74,6 +74,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import spanned
 from . import gemv_kernel, ipm_graph
 from .chol import blocked_cho_solve, blocked_cholesky
 from .chol_ref import cholesky_nan
@@ -285,6 +286,13 @@ def _certificate(lp: _Lp, state):
     return x, y * lp.cscale, err
 
 
+@spanned("lp.poll")
+def _poll(go) -> bool:
+    """The chunk loop's host read of the flag."""
+    return bool(go)
+
+
+@spanned("lp.poll")
 def _first_read(go, guard) -> bool:
     """One host read for the first flag and the packed copy's guard."""
     go, exact = torch.stack((go, guard)).tolist()
@@ -373,7 +381,7 @@ class _GraphSolve:
         ipm_graph.replay(parts["start"])
         ipm_graph.replay(parts["boundary"])
         go = (_first_read(self.go, guard) if guard is not None
-              else bool(self.go))
+              else _poll(self.go))
         n_chunks = -(-iters // self.check_every)
         for k in range(n_chunks):
             if not go:
@@ -382,7 +390,7 @@ class _GraphSolve:
             if k + 1 == n_chunks:
                 break
             ipm_graph.replay(parts["boundary"])
-            go = bool(self.go)
+            go = _poll(self.go)
         ipm_graph.replay(parts["finish"])
         return tuple(v.clone() for v in self.out)
 
@@ -392,6 +400,7 @@ class _GraphSolve:
 _graph_solves: dict[tuple, _GraphSolve] = {}
 
 
+@spanned("lp.solve")
 def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
                active=None, delta: float = 1e-6, check_every: int = 5,
                x0=None, y0=None, warm_shift: float = 1e-2,
@@ -470,8 +479,8 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     for _ in range(-(-iters // check_every)):
         state, best_err, stall_cnt, go = _boundary(lp, state, best_err,
                                                    stall_cnt)
-        if guard is not None:
-            go, guard = _first_read(go, guard), None
+        go = _first_read(go, guard) if guard is not None else _poll(go)
+        guard = None
         if not go:
             break
         for _ in range(check_every):

@@ -25,19 +25,33 @@ JAX's ``fori_loop(cond(...))`` chunk loop is a Python loop here: before each
 chunk the host reads the batch-max error, one device sync per chunk (at most
 ``ceil(iters / check_every)`` per solve; ALP's 2048/64 budget gives 32). A
 chunk that does not run leaves the carry unchanged, so no later chunk can run
-either and the loop leaves at the first one. The stop tests are evaluated in
-float32, as JAX evaluates them on the device.
+either and the loop leaves at the first one. So a solve of k chunks makes
+k + 1 reads (:func:`pdhg_box_lp`) or k (:func:`pdhg_box_lp_fused`, whose
+first chunk runs unread), one fewer when it runs its whole budget. The stop
+tests are evaluated in float32, as JAX evaluates them on the device.
+:data:`COUNTS` counts the reads, and the fused solver's chunks and lanes.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
 
+from ..utils.profiling import span, spanned
 from .pdhg_kernel import pdhg_chunk
 from .pdhg_ref import lane_err, pdhg_step
 
-__all__ = ["pdhg_box_lp", "pdhg_box_lp_fused", "pdhg_box_lp_shared",
+__all__ = ["COUNTS", "pdhg_box_lp", "pdhg_box_lp_fused", "pdhg_box_lp_shared",
            "pdhg_steps", "require_full_f32"]
+
+# the tolerance-driven solvers' host reads and the fused solver's work,
+# summed over every solve of the process: ``chunks`` (each one
+# ``pdhg_chunk`` call) and ``lanes`` (their working lanes, as the caller
+# gives them), ``reads.poll`` (the chunk loop's read of the batch-max error,
+# with the row guard when both are due) and ``reads.guard`` (the row guard
+# read alone, after the loop)
+COUNTS: Counter = Counter()
 
 
 def require_full_f32(caller: str) -> None:
@@ -87,10 +101,13 @@ def _go(vmax: np.float32, vprev: np.float32, tol: float,
     return bool(go)
 
 
+@spanned("lp.poll")
 def _host_max(v: torch.Tensor) -> np.float32:
+    COUNTS["reads.poll"] += 1
     return np.float32(v.max().item())
 
 
+@spanned("lp.solve")
 def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
                 tol: float | None = None, check_every: int = 200,
                 active=None, stall_ratio: float | None = None,
@@ -151,10 +168,12 @@ def _refuse_rows(outside) -> None:
                          "entries in {-1, 0, 1}")
 
 
+@spanned("lp.solve")
 def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
                       tol: float = 1e-4, check_every: int = 200,
                       active=None, stall_ratio: float | None = None,
-                      average: bool = False, omega: float = 1.0):
+                      average: bool = False, omega: float = 1.0,
+                      lanes: int | None = None):
     """Tolerance-driven PDHG whose chunks are :func:`pdhg_chunk` calls.
 
     Same arguments and (x, y, err) return as ``pdhg_box_lp(tol=...)``; any
@@ -169,6 +188,10 @@ def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
     raises ``ValueError`` on it. The report is read with the host read the
     loop makes before its second chunk (after the loop when only one chunk
     was to run).
+
+    ``lanes``, the number of ``active`` lanes where the caller holds it
+    (the batch by default), is only counted: :data:`COUNTS` adds it once a
+    chunk.
     """
     tau, sigma = pdhg_steps(a_rows, safety, omega)
     x, y = x0.contiguous(), y0.contiguous()
@@ -181,8 +204,10 @@ def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
         elif guard is None:
             vmax = _host_max(v)
         else:                       # one host read for both values
-            vmax, outside = torch.stack((v.max(), guard.any().to(v.dtype))
-                                        ).tolist()
+            with span("lp.poll"):
+                vmax, outside = torch.stack(
+                    (v.max(), guard.any().to(v.dtype))).tolist()
+            COUNTS["reads.poll"] += 1
             vmax, guard = np.float32(vmax), None
             _refuse_rows(outside)
         if not _go(vmax, vprev, tol, stall_ratio):
@@ -196,8 +221,13 @@ def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
         if active is not None:
             v = torch.where(active, v, 0.0)
         vprev = vmax
+        COUNTS["chunks"] += 1
+        COUNTS["lanes"] += a_rows.shape[0] if lanes is None else lanes
     if guard is not None:
-        _refuse_rows(guard.any().item())
+        with span("lp.poll"):
+            outside = guard.any().item()
+        COUNTS["reads.guard"] += 1
+        _refuse_rows(outside)
     if v is None:
         v = torch.full((a_rows.shape[0],), float("inf"),
                        dtype=torch.float32, device=a_rows.device)

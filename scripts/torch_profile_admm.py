@@ -28,7 +28,7 @@ from ldpc_tpu_torch.config import SweepConfig
 from ldpc_tpu_torch.decoders import make_decoder
 from ldpc_tpu_torch.harness.experiment import run_experiment
 from ldpc_tpu_torch.ops import admm_kernel
-from scripts.torch_profile_alp import _union_us
+from scripts.torch_profile_alp import _device_ops, _union_us
 
 TRACE = "build/torch_admm_trace.json"
 SNR = -3.0
@@ -62,8 +62,7 @@ def main(argv=None):
         res = run()
         wall = time.perf_counter() - t0
     launches = admm_kernel.ITERATE_LAUNCHES - launches
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_events = [e for e in prof.events() if e.device_type == cuda]
+    dev_events = _device_ops(prof.events())
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in dev_events])
     kern_us = sum(e.time_range.elapsed_us() for e in dev_events

@@ -8,8 +8,8 @@ the path's kernels' share of device time (the GF(2) elimination, the two
 matvecs, the normal matrix, the Cholesky diagonal block), the cuBLAS
 products (the blocked Cholesky's panels and block solves, ``bmm`` glue) and
 the rest; the device time under each phase of a cut round (cut search,
-Gaussian elimination, IPM solve), marked with ``record_function`` ranges
-wrapped around the decoder's functions; the host reads per batch
+appends, Gaussian elimination, IPM solve), read from the spans the program
+opens while a profiler records; the host reads per batch
 (device-to-host copies, each of which waits for the stream); and the kernels
 ranked by device time. The Chrome trace goes to ``build/torch_agc_trace.json``
 (gitignored). A 128-lane batch makes about 360,000 launches, so the
@@ -34,8 +34,7 @@ from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
 from ldpc_tpu_torch.codes.io import read_pcm
 from ldpc_tpu_torch.decoders import agc_alp
 from ldpc_tpu_torch.harness.experiment import run_experiment
-from scripts.torch_profile_alp import RANGE_NAMES, _mark_phases, _ranged, \
-    _union_us
+from scripts.torch_profile_alp import RANGE_NAMES, _device_ops, _union_us
 
 TRACE = "build/torch_agc_trace.json"
 SNR = -3.0
@@ -43,7 +42,6 @@ BATCH = 128
 KERNELS = {"gf2_eliminate": "gf2_gauss_kernel", "gemv_fwd": "gemv_fwd_kernel",
            "gemv_tr": "gemv_tr_kernel", "normal_build": "normal_build_kernel",
            "chol_diag_inv": "chol_diag_inv_kernel"}
-GAUSS_RANGE = "agc.gauss"
 
 
 def _merge(spans):
@@ -80,9 +78,6 @@ def main(argv=None):
     cw = gen_random_codewords(g, args.trials,
                               torch.Generator().manual_seed(bench.SEED), dev)
     dec = agc_alp.AGCALPDecoder(h, device=dev)
-    _mark_phases()
-    agc_alp.AGCALPDecoder._gauss_sup = _ranged(
-        GAUSS_RANGE, agc_alp.AGCALPDecoder._gauss_sup)
 
     def run():
         return run_experiment(dec, h, cw, SNR, bench.SEED + 1,
@@ -98,11 +93,8 @@ def main(argv=None):
     batches = -(-args.trials // BATCH)
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    ranges = (*RANGE_NAMES, GAUSS_RANGE)
-    # the profiler mirrors record_function ranges onto the device timeline
-    # as annotations spanning their kernels; they are not device work
-    dev_events = [e for e in events if e.device_type == cuda
-                  and e.name not in ranges]
+    ranges = (*RANGE_NAMES, "agc.gauss")
+    dev_events = _device_ops(events)
     merged = _merge((e.time_range.start, e.time_range.end)
                     for e in dev_events)
     starts = [m[0] for m in merged]

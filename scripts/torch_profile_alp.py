@@ -4,9 +4,10 @@ Runs ALP (optimalH, -3 dB, batches of 256, the sweep app's configuration)
 through ``run_experiment`` once to warm up (kernel build included), then
 once more under ``torch.profiler``, and prints: the wall time and device-busy
 time of the profiled run and the idle share; the PDHG kernel's share of
-device time and its launches per row tier; the device time spent under each phase of a cut round (cut
-search, tier solve, the rest), marked with ``record_function`` ranges that
-this script wraps around the decoder's functions; the host reads per batch
+device time and its launches per row tier; the device time spent under each
+phase of a cut round (the round, its cut search and appends, the LP solve),
+read from the spans the program opens while a profiler records
+(``ldpc_tpu_torch.utils.profiling.SPANS``); the host reads per batch
 (device-to-host copies, each of which waits for the stream); and the kernels
 ranked by device time. The Chrome trace goes to
 ``build/torch_alp_trace.json`` (gitignored).
@@ -16,12 +17,11 @@ ranked by device time. The Chrome trace goes to
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from ldpc_tpu_torch import bench
 from ldpc_tpu_torch.channel.awgn import gen_random_codewords
@@ -30,13 +30,12 @@ from ldpc_tpu_torch.codes.io import read_pcm
 from ldpc_tpu_torch.decoders import alp
 from ldpc_tpu_torch.harness.experiment import run_experiment
 from ldpc_tpu_torch.ops import pdhg_kernel
+from ldpc_tpu_torch.utils.profiling import SPANS
 
 TRACE = "build/torch_alp_trace.json"
 SNR = -3.0
 BATCH = 256
-RANGES = {"alp.cut_search": ("alp_cut_candidates", "cut_hashes",
-                             "append_cuts")}
-RANGE_NAMES = ("alp.round", "alp.cut_search", "alp.solve")
+RANGE_NAMES = ("alp.round", "alp.cut_search", "alp.append", "lp.solve")
 
 
 def _union_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
@@ -51,23 +50,15 @@ def _union_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
     return busy
 
 
-def _ranged(name, fn):
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-def _mark_phases():
-    """Wrap the cut round's phases in profiler ranges (this process only)."""
-    for name, fns in RANGES.items():
-        for fn in fns:
-            setattr(alp, fn, _ranged(name, getattr(alp, fn)))
-    alp._AdaptiveLPBase._solve = _ranged("alp.solve",
-                                         alp._AdaptiveLPBase._solve)
-    alp._AdaptiveLPBase._round_body = _ranged(
-        "alp.round", alp._AdaptiveLPBase._round_body)
+def _device_ops(events):
+    """The profiler's device-side events that are device work (kernels,
+    copies, memsets): the profiler also mirrors every ``record_function``
+    range, the program's spans among them, onto the device timeline as an
+    annotation spanning its kernels, which is not work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in SPANS]
 
 
 def main(argv=None):
@@ -82,7 +73,6 @@ def main(argv=None):
     cw = gen_random_codewords(g, args.trials,
                               torch.Generator().manual_seed(bench.SEED), dev)
     dec = alp.ALPDecoder(h, device=dev)
-    _mark_phases()
 
     def run():
         return run_experiment(dec, h, cw, SNR, bench.SEED + 1,
@@ -101,10 +91,7 @@ def main(argv=None):
     batches = -(-args.trials // BATCH)
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    # the profiler mirrors record_function ranges onto the device timeline
-    # as annotations spanning their kernels; they are not device work
-    dev_events = [e for e in events if e.device_type == cuda
-                  and e.name not in RANGE_NAMES]
+    dev_events = _device_ops(events)
     spans = [(e.time_range.start, e.time_range.end) for e in dev_events]
     busy_us = _union_us(spans)
     pdhg_us = sum(e.time_range.elapsed_us() for e in dev_events

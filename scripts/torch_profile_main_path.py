@@ -2,9 +2,11 @@
 
 Runs the benchmark's configuration once to warm up (kernel build included),
 then once more under ``torch.profiler``, and prints: the wall time of the
-profiled run, the device-busy time (sum of kernel times on the one stream)
-and idle share, and the kernels ranked by device time. The Chrome trace goes
-to ``build/torch_main_path_trace.json`` (gitignored).
+profiled run, the device-busy time (the union of the device's kernels and
+copies; the program's spans, which the profiler mirrors onto the device as
+annotations, are not work) and idle share, and the kernels ranked by
+device time. The Chrome trace goes to ``build/torch_main_path_trace.json``
+(gitignored).
 
     python -m scripts.torch_profile_main_path
 """
@@ -22,20 +24,9 @@ from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
 from ldpc_tpu_torch.codes.io import read_pcm
 from ldpc_tpu_torch.decoders.bp import BPDecoder
 from ldpc_tpu_torch.harness.experiment import run_experiment
+from scripts.torch_profile_alp import _device_ops, _union_us
 
 TRACE = "build/torch_main_path_trace.json"
-
-
-def _busy_us(events) -> float:
-    """Length of the union of the device-side intervals (kernels, copies)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy
 
 
 def main():
@@ -60,7 +51,8 @@ def main():
         t0 = time.perf_counter()
         res = run()
         wall = time.perf_counter() - t0
-    busy_us = _busy_us(prof.events())
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in _device_ops(prof.events())])
     events = prof.key_averages()
     print(f"device: {bench.card_stamp(dev)}")
     print(f"profiled run: {res.total} trials, FER {res.fer:.4f}, wall "

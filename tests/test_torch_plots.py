@@ -4,7 +4,7 @@ helpers (``ldpc_tpu_torch/utils/profiling.py``).
 ``read_report`` must give what the JAX package's gives on every committed
 report (exactly: the same parse of the same text), ``main`` must write the
 same files, ``Timer`` must accumulate and ``trace`` must write a Chrome
-trace on the CPU."""
+trace on the CPU, with the program's spans in it."""
 import glob
 import json
 import math
@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.apps import plots
+from ldpc_tpu_torch.codes.io import read_pcm
+from ldpc_tpu_torch.decoders.bp import BPDecoder
+from ldpc_tpu_torch.harness.experiment import run_experiment
 from ldpc_tpu_torch.utils.profiling import Timer, trace
 
 try:  # the card's host has no JAX
@@ -78,13 +81,22 @@ def test_timer_accumulates():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The operator's use: a harness call under ``trace`` leaves the
+    program's spans in the exported trace."""
+    h = read_pcm(os.path.join(os.path.dirname(__file__), "..", "data",
+                              "H.txt"))
+    cw = torch.zeros((4, h.shape[1]), dtype=torch.uint8)
     out = str(tmp_path / "trace")
     with trace(out):
         torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+        run_experiment(BPDecoder(h, max_iter=5, device="cpu"), h, cw, 1.0, 3,
+                       batch_size=4, device="cpu", warmup=False)
     files = os.listdir(out)
     assert len(files) == 1 and files[0].endswith(".json")
     with open(os.path.join(out, files[0])) as f:
         events = json.load(f)["traceEvents"]
-    assert any("matmul" in str(e.get("name", "")) for e in events)
+    names = {str(e.get("name", "")) for e in events}
+    assert any("matmul" in name for name in names)
+    assert {"harness.block", "harness.channel", "bp.decode"} <= names
     with trace(None):                # no directory: nothing recorded
         torch.ones(2).sum()
