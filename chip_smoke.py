@@ -26,9 +26,11 @@ printing one line before the next starts:
    plain decode, no kernel launch), held to the same decoder on the CPU
    for the same LLRs by the same rule;
 4. main path at full size: ``ldpc_tpu_torch.bench.main()`` (65,536 trials,
-   batch 8192, -3 dB, 100 and 50 iterations) with the kernel's launch count
-   reset before and read after; the FER must lie within |z| < 3.5 of the
-   reference's 0.4860 (10,000 trials);
+   batch 8192, -3 dB, 100 and 50 iterations) with the BP kernel's and the
+   channel kernel's launch counts reset before and read after; the FER must
+   lie within |z| < 3.5 of the reference's 0.4860 (10,000 trials), and the
+   channel kernel must have launched once a batch (the harness's
+   ``COUNTS["batches"]`` over the same run);
 5. PDHG chunk kernel vs its plain twin ``ops.pdhg_ref`` on the card: random
    signed-row LPs shaped like ``tests/test_pallas_pdhg.py``'s (256 lanes,
    n = 280, every row tier of the ALP path, T = 128 ... 896, and n = 640,
@@ -225,12 +227,23 @@ printing one line before the next starts:
     the JAX run's ``reports/optimize_before_after.json``, and optimalH's
     and H05's FERs at both configs lie within |z| < 3.5 of that run's
     (10,000 trials); the iteration kernel launched.
+18. the channel kernel (``csrc/awgn_channel.cu``: the trial-keyed noise,
+    BPSK, the LLR scaling and the hard-decision count in one launch) against
+    its plain twin (``channel.awgn.channel_ref`` on the same card tensors)
+    at the main path's shapes, 8192 x 280 (BP) and 256 x 280 (ALP): optimalH
+    codewords gathered by a permutation from a deeper table, trial indices
+    past 2**32 as a strided view, a seed past 2**31, one noise scale and
+    one a lane (two SNRs alternating). Gate: y, the LLRs and the count equal
+    the twin's bit for bit, one launch a call. Times each as a CUDA graph
+    of calls (device time, warm) and by events, the twin as a CUDA graph,
+    beside the bound: the bytes (bits and trial indices in, y, the LLRs and
+    the count out) over the HBM rate.
 
 Phases 10-17 reset every kernel's launch count before their path and print
 the counts after it (phase 12 runs BP's kernel, phase 15 BP's, the PDHG
 kernel and QP-ADMM's in every rank, phase 16 none: it runs on the host);
 QP-ADMM's iteration kernel must have launched on phases 10, 13, 14, 15 and
-17.
+17, the channel kernel on phases 10, 12, 13 and 14.
 Each phase prints its seconds. Then the script prints the host core's JSON
 line, the kernels' JSON line, the card's ``name, power.limit`` line and,
 last,
@@ -358,6 +371,12 @@ BA_JAX = "reports/optimize_before_after.json"
 BA_TRIALS = 2000
 BA_GATED = ("fer_reference_optimalH", "fer_H05",
             "report_fer_reference_optimalH", "report_fer_H05")
+# phase 18: the channel kernel at the main path's shapes (BP, ALP)
+CHANNEL_SHAPES = ((LANES, 280), (ALP_LANES, 280))
+CHANNEL_SEED = 2**31 + 7
+CHANNEL_SNRS = (-3.0, 0.0)  # the per-lane form alternates the two
+CHANNEL_CALLS = 20          # calls of the timed graph
+CHANNEL_TWIN_CALLS = 2
 # phase 16: the native host core against NumPy on the card's host
 NATIVE_FILES = ("H", "optimalH", "H02", "H05")
 NATIVE_GENERATIONS = 25  # of the state file's 8 chains: 200 mutations
@@ -644,26 +663,36 @@ def phase_kernel_vs_ref():
 
 def phase_main_path():
     from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.harness import experiment
     from ldpc_tpu_torch.harness.reference_data import Z_BOUND, z_score
-    from ldpc_tpu_torch.ops import bp_kernel
+    from ldpc_tpu_torch.ops import bp_kernel, channel_kernel
 
     bp_kernel.LAUNCHES = 0
+    channel_kernel.LAUNCHES = 0
+    batches = experiment.COUNTS["batches"]
     out = bench.main()
     launches = bp_kernel.LAUNCHES
+    channel_launches = channel_kernel.LAUNCHES
+    batches = experiment.COUNTS["batches"] - batches
     extra = out["extra"]
     z = z_score(extra["fer_100it"], extra["trials"], bench.FER_REF_100IT)
     print(f"[4 main path] {out['value']} cw/s at 100 it, {extra['cws_50it']} "
           f"cw/s at 50 it; FER {extra['fer_100it']} (z = {z:+.2f} against "
           f"{bench.FER_REF_100IT}), FER@50it {extra['fer_50it']}; "
-          f"bp_decode launches {launches}", flush=True)
+          f"bp_decode launches {launches}; awgn_channel launches "
+          f"{channel_launches} over {batches} batches", flush=True)
     if launches <= 0 or extra["bp_kernel_launches"] <= 0:
         raise AssertionError("the main path did not launch the BP kernel")
+    if batches <= 0 or channel_launches != batches:
+        raise AssertionError(f"the main path launched the channel kernel "
+                             f"{channel_launches} times over {batches} "
+                             f"batches, not once a batch")
     if not abs(z) < Z_BOUND:
         raise AssertionError(f"FER {extra['fer_100it']} is {z:+.2f} sigma "
                              f"from the reference")
     if not (0.0 < out["value"] < float("inf") and extra["trials"] > 0):
         raise AssertionError(f"bad throughput {out['value']}")
-    return launches
+    return launches, channel_launches
 
 
 def _pdhg_compare(label, args, active, average):
@@ -919,7 +948,8 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
 # every kernel of the port
 ALL_COUNTERS = {"bp_decode": ("bp_kernel", "LAUNCHES"),
                 "pdhg_chunk": ("pdhg_kernel", "LAUNCHES"), **AGC_COUNTERS,
-                "admm_iterate": ("admm_kernel", "ITERATE_LAUNCHES")}
+                "admm_iterate": ("admm_kernel", "ITERATE_LAUNCHES"),
+                "awgn_channel": ("channel_kernel", "LAUNCHES")}
 
 
 def _agc_counts(reset: bool = False, counters=AGC_COUNTERS) -> dict:
@@ -2110,7 +2140,8 @@ def phase_qpadmm_path():
         rows = run_sweep(cfg, device=dev)
         secs = time.perf_counter() - t0
     counts = _agc_counts(counters=ALL_COUNTERS)
-    _path_counts("10 qp-admm path", counts, need=("admm_iterate",))
+    _path_counts("10 qp-admm path", counts,
+                 need=("admm_iterate", "awgn_channel"))
     res = rows[0][2]
     z = z_score(res.fer, res.total, fer_ref)
     print(f"[10 qp-admm path] run_sweep qp-admm {ADMM_SNR} dB, {res.total} "
@@ -2381,7 +2412,7 @@ def phase_multi_snr():
     fused = run_multi_snr_experiment(dec, h, cw, MULTI_SNRS, bench.SEED + 1,
                                      LANES, device=dev, warmup=False)
     counts = _agc_counts(counters=ALL_COUNTERS)
-    _path_counts("12 multi-snr", counts, need=("bp_decode",))
+    _path_counts("12 multi-snr", counts, need=("bp_decode", "awgn_channel"))
     elapsed = sum(r.time_sec for r in fused)
     print(f"[12 multi-snr] BP-{MAX_ITER} over {MULTI_SNRS} dB as one run of "
           f"{len(MULTI_SNRS)} x {LANES} lanes in batches of {LANES}: "
@@ -2425,7 +2456,7 @@ def phase_apps():
                                       log=lambda *a, **k: None)
     secs = time.perf_counter() - t0
     _path_counts("13 apps", _agc_counts(counters=ALL_COUNTERS),
-                 need=("admm_iterate",))
+                 need=("admm_iterate", "awgn_channel"))
     h = read_pcm(cfg.matrix)
     cw, llr = qpadmm_grid.grid_channel(cfg, h, dev)
     diff = []
@@ -2629,7 +2660,7 @@ def phase_optimizer():
     finally:
         optimize_h.PopulationEvaluator = base
     _path_counts("14 optimizer", _agc_counts(counters=ALL_COUNTERS),
-                 need=("admm_iterate",))
+                 need=("admm_iterate", "awgn_channel"))
 
     def kind(call):
         if call[2] == cfg.screen_iters:
@@ -3133,6 +3164,74 @@ def phase_before_after():
                              f"run: {far}")
 
 
+def phase_channel():
+    import torch
+    from ldpc_tpu_torch import bench
+    from ldpc_tpu_torch.channel import awgn
+    from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
+    from ldpc_tpu_torch.codes.io import read_pcm
+    from ldpc_tpu_torch.ops import channel_kernel
+
+    dev = torch.device("cuda")
+    g, _ = gf2_nullspace(read_pcm(str(bench.MATRIX)))
+    key = awgn.noise_key(CHANNEL_SEED)
+    sigmas, scales = awgn.snr_table(CHANNEL_SNRS, dev)
+    rows = {}
+    for bsz, n in CHANNEL_SHAPES:
+        gen = torch.Generator().manual_seed(bsz)
+        table = awgn.gen_random_codewords(g, bsz + 5, gen, dev)
+        bits = table.index_select(0, torch.randperm(bsz + 5, generator=gen)
+                                  [:bsz].to(dev))
+        trials = (2**32 + 11 + 3 * torch.arange(2 * bsz, device=dev)).flip(
+            0)[::2]
+        sid = torch.arange(bsz, device=dev) % len(CHANNEL_SNRS)
+        differ = {}
+        for form, sigma, scale in (
+                ("scalar", *awgn.noise_scales(CHANNEL_SNRS[0])),
+                ("lanes", sigmas[sid], scales[sid])):
+            before = channel_kernel.LAUNCHES
+            got = channel_kernel.awgn_channel(bits, trials, key, sigma,
+                                              scale)
+            launched = channel_kernel.LAUNCHES - before
+            want = awgn.channel_ref(bits, trials, CHANNEL_SEED, sigma, scale)
+            differ[form] = {k: int((a != b).sum()) for k, a, b in
+                            zip(("y", "llr", "hd"), got, want)}
+            if launched != 1 or any(differ[form].values()):
+                raise AssertionError(
+                    f"the channel kernel at {bsz} x {n} ({form}) differs "
+                    f"from its twin: {differ[form]}, {launched} launches")
+        sigma, scale = awgn.noise_scales(CHANNEL_SNRS[0])
+
+        def kernel():
+            return channel_kernel.awgn_channel(bits, trials, key, sigma,
+                                               scale)
+
+        def twin():
+            return awgn.channel_ref(bits, trials, CHANNEL_SEED, sigma, scale)
+
+        ms = _graph_ms(kernel, [()] * CHANNEL_CALLS)
+        events_ms = _time_ms(kernel)
+        plain_ms = _graph_ms(twin, [()] * CHANNEL_TWIN_CALLS)
+        # bits and trial indices in, y, the LLRs and the count out
+        nbytes = bsz * n * (1 + 4 + 4) + bsz * (8 + 8)
+        rows[(bsz, n)] = {
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "events_ms": events_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "differ": differ, "shape": f"{bsz}x{n} optimalH codewords, "
+            f"seed {CHANNEL_SEED}, SNR {CHANNEL_SNRS[0]:+.1f} dB, device "
+            f"time (CUDA graph, warm)"}
+        print(f"[18 channel] {bsz} x {n}: y, llr and hd equal the twin's "
+              f"bit for bit (scalar and per-lane factors, {differ}); kernel "
+              f"{ms:.6f} ms (CUDA graph of {CHANNEL_CALLS} calls; "
+              f"{events_ms:.6f} ms by events), twin {plain_ms:.4f} ms; bound "
+              f"{rows[(bsz, n)]['bound_ms']:.6f} ms by bytes "
+              f"({nbytes / 1e6:.2f} MB), "
+              f"{rows[(bsz, n)]['bound_ms'] / ms:.3f} of the kernel's time",
+              flush=True)
+    return rows
+
+
 def _worst_and_last(rows):
     """One JSON row from per-shape rows: the largest error, the times and
     shape of the last (deepest) shape."""
@@ -3155,7 +3254,7 @@ def main() -> int:
     from ldpc_tpu_torch.bench import card_stamp
     _timed("2 build", phase_build)
     rows = _timed("3 kernel-vs-ref", phase_kernel_vs_ref)
-    launches = _timed("4 main path", phase_main_path)
+    launches, channel_launches = _timed("4 main path", phase_main_path)
     pdhg = _timed("5 pdhg-vs-ref", phase_pdhg_vs_ref)
     pdhg_launches, pdhg_tiers = _timed("6 alp path", phase_alp_path)
     agc_rows = _timed("7 agc-kernels", phase_agc_kernels_vs_ref)
@@ -3169,6 +3268,7 @@ def main() -> int:
     _timed("15 worlds", phase_worlds)
     host_core = _timed("16 native", phase_native)
     _timed("17 before/after", phase_before_after)
+    channel = _timed("18 channel", phase_channel)
     head = rows[-3.0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -3270,6 +3370,16 @@ def main() -> int:
                     "replaces":
                         "XLA fusion, ldpc_tpu/decoders/admm.py:184-262",
                     **admm_row})
+    head = channel[(LANES, 280)]
+    kernels.append({"name": "awgn_channel", "route": "cuda",
+                    "source": "ldpc_tpu_torch/csrc/awgn_channel.cu",
+                    "replaces": "XLA fusion, "
+                                "ldpc_tpu/harness/experiment.py:107-118",
+                    "launches": channel_launches,
+                    **{k: head[k] for k in keys},
+                    "events_ms": head["events_ms"], "shape": head["shape"],
+                    "shapes": [{"lanes": b, "n": n, **row}
+                               for (b, n), row in channel.items()]})
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"host_core": host_core}))
     print(json.dumps({"kernels": kernels}))

@@ -52,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from ..channel.awgn import gen_random_codewords, noise_scales, transmit
+from ..channel.awgn import channel, gen_random_codewords, noise_scales
 from ..codes.gf2 import gf2_nullspace
 from ..codes.io import read_pcm, save_matrix
 from ..codes.qc import QCMatrix
@@ -188,7 +188,7 @@ class PopulationEvaluator:
         stacked = {k: torch.from_numpy(np.stack(
             [t[k] for t in tables_list])).to(self.device) for k in TABLES}
         cw_all = torch.stack(cw_list)                   # (P, T, n)
-        inv_var = noise_scales(cfg.snr)[1]
+        sigma, inv_var = noise_scales(cfg.snr)
 
         # Noise is SHARED across candidates (common random numbers): every
         # proposal sees the same channel realizations, so FER differences
@@ -201,7 +201,7 @@ class PopulationEvaluator:
             idx = torch.arange(start, stop, dtype=torch.int64,
                                device=self.device)
             cw = cw_all[:, start:stop]
-            llrs = inv_var * transmit(cw, cfg.snr, int(seed) + 1, idx)
+            llrs = channel(cw, idx, int(seed) + 1, sigma, inv_var)[1]
             res = decode_qp_admm_population(stacked, self.n, llrs,
                                             cfg.admm_alpha, cfg.admm_mu,
                                             max_iter, 1e-5)

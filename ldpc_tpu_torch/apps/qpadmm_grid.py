@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from ..channel.awgn import gen_random_codewords, noise_scales, transmit
+from ..channel.awgn import channel, gen_random_codewords, noise_scales
 from ..codes.gf2 import gf2_nullspace
 from ..codes.io import read_pcm
 from ..config import GridSearchConfig, add_dataclass_args, apply_args
@@ -42,8 +42,8 @@ def grid_channel(cfg: GridSearchConfig, h, device: torch.device):
     cw = gen_random_codewords(g, cfg.trials,
                               torch.Generator().manual_seed(cfg.seed), device)
     idx = torch.arange(cfg.trials, dtype=torch.int64, device=device)
-    y = transmit(cw, cfg.snr, cfg.seed + 1, idx)
-    return cw, noise_scales(cfg.snr)[1] * y
+    _, llrs, _ = channel(cw, idx, cfg.seed + 1, *noise_scales(cfg.snr))
+    return cw, llrs
 
 
 def run_grid(cfg: GridSearchConfig, device: torch.device | str = "cuda",

@@ -15,6 +15,11 @@ size, the batch order or the device. A counter-based integer hash gives two
 rounded to float32) turns them into two normals. Only exact integer tensor
 ops feed the float64 step, so the CPU and a CUDA device draw the same bits of
 randomness. (The stream is not JAX's threefry and need not be.)
+
+On a CUDA tensor the channel step is one launch a batch of the hand-written
+kernel ``csrc/awgn_channel.cu`` (:func:`channel`: y, the LLRs and the
+hard-decision count together), bit for bit with the plain ops here
+(:func:`channel_ref`), which every function runs on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -23,9 +28,11 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["llr_variance", "llr", "bpsk", "awgn_noise", "noise_scales",
-           "snr_table", "transmit", "transmit_lanes", "channel_llr",
-           "gen_random_codewords"]
+from ..ops.channel_kernel import awgn_channel
+
+__all__ = ["llr_variance", "llr", "bpsk", "awgn_noise", "noise_key",
+           "noise_scales", "snr_table", "hard_errors", "channel_ref",
+           "channel", "transmit", "channel_llr", "gen_random_codewords"]
 
 _M32 = 0xFFFFFFFF
 
@@ -56,7 +63,8 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """A bijective 32-bit finalizer with full avalanche (Wellons'
-    ``lowbias32``) on int64 tensors holding 32-bit values."""
+    ``lowbias32``) on int64 tensors, or Python ints, holding 32-bit
+    values."""
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -84,6 +92,13 @@ def awgn_noise(seed: int, trial_idx: torch.Tensor, n: int) -> torch.Tensor:
     return z.reshape(z.shape[0], 2 * pairs)[:, :n].to(torch.float32)
 
 
+def noise_key(seed: int) -> int:
+    """The 32-bit key of ``seed``'s noise as :func:`awgn_noise` takes it,
+    on the host (:func:`_mix32` on a Python int): the channel kernel's
+    argument."""
+    return _mix32((int(seed) & _M32) ^ 0x9E3779B9)
+
+
 def noise_scales(snr: float) -> tuple[float, float]:
     """(sigma, 2 / sigma^2) of one SNR as Python floats. Both round to
     float32 where they multiply a float32 tensor, so :func:`transmit` and
@@ -101,28 +116,71 @@ def snr_table(snrs, device: torch.device | str):
     return table[:, 0].contiguous(), table[:, 1].contiguous()
 
 
+def hard_errors(bits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(..., B) int64 channel hard-decision errors of codewords ``bits``
+    received as ``y``: y <= 0 for bit 0, y > 0 otherwise
+    (``experiment.h:33-46``)."""
+    return torch.where(bits == 0, y <= 0, y > 0).sum(dim=-1)
+
+
+def _lanes(v):
+    """A per-lane (B,) factor as a column against (B, n); a float as is."""
+    return v[:, None] if isinstance(v, torch.Tensor) else v
+
+
+def _received(bits, sigma, seed, trial_idx):
+    return bpsk(bits) + _lanes(sigma) * awgn_noise(seed, trial_idx,
+                                                    bits.shape[-1])
+
+
+def channel_ref(bits: torch.Tensor, trial_idx: torch.Tensor, seed: int,
+                sigma, scale):
+    """The channel step as plain tensor ops, on any device: (y, scale * y,
+    :func:`hard_errors`) of codewords ``bits`` (..., B, n), trial ``b``'s
+    noise keyed by ``(seed, trial_idx[b])`` and shared over the leading
+    dimensions. ``sigma`` and ``scale``: Python floats or (B,) float32
+    tensors (rows of :func:`snr_table`)."""
+    y = _received(bits, sigma, seed, trial_idx)
+    return y, _lanes(scale) * y, hard_errors(bits, y)
+
+
+def channel(bits: torch.Tensor, trial_idx: torch.Tensor, seed: int, sigma,
+            scale):
+    """:func:`channel_ref`'s (y, llr, hard-decision errors), bit for bit:
+    on a CUDA tensor one launch of the channel kernel
+    (``ops/channel_kernel.py``), on a CPU tensor :func:`channel_ref`.
+    Leading dimensions of ``bits`` are lanes of the kernel's batch with
+    ``trial_idx`` repeated over them."""
+    if bits.device.type != "cuda":
+        return channel_ref(bits, trial_idx, seed, sigma, scale)
+    n = bits.shape[-1]
+    rows = bits.reshape(-1, n).contiguous()
+    trials = trial_idx.to(torch.int64)
+    reps = rows.shape[0] // max(trials.shape[0], 1)
+    if reps > 1:
+        trials = trials.repeat(reps)
+    y, lam, hd = awgn_channel(rows, trials, noise_key(seed), sigma, scale)
+    return y.view(bits.shape), lam.view(bits.shape), hd.view(bits.shape[:-1])
+
+
 def transmit(bits: torch.Tensor, snr: float, seed: int,
              trial_idx: torch.Tensor) -> torch.Tensor:
     """Send codewords ``bits`` (B, n) over BPSK-AWGN; trial ``b``'s noise is
     keyed by ``(seed, trial_idx[b])``. Returns received symbols (B, n) f32."""
-    sigma = noise_scales(snr)[0]
-    return bpsk(bits) + sigma * awgn_noise(seed, trial_idx, bits.shape[-1])
-
-
-def transmit_lanes(bits: torch.Tensor, sigma: torch.Tensor, seed: int,
-                   trial_idx: torch.Tensor) -> torch.Tensor:
-    """:func:`transmit` with a per-lane noise scale ``sigma`` (B,) float32
-    (rows of :func:`snr_table`); a lane's symbols equal :func:`transmit`'s
-    at its SNR bit for bit."""
-    return bpsk(bits) + sigma[:, None] * awgn_noise(seed, trial_idx,
-                                                     bits.shape[-1])
+    return channel(bits, trial_idx, seed, *noise_scales(snr))[0]
 
 
 def channel_llr(bits: torch.Tensor, snr: float, seed: int,
                 trial_idx: torch.Tensor):
-    """Transmit and convert to LLRs in one step; returns (y, llr)."""
-    y = transmit(bits, snr, seed, trial_idx)
-    return y, llr(y, snr)
+    """Transmit and convert to LLRs in one step; returns (y, llr) with the
+    LLRs of :func:`llr`. PyTorch's CUDA division by a Python float
+    multiplies by its float32 reciprocal, so ``2 y / var`` there is ``y``
+    times ``2 fl(1 / var)``, exactly, and the channel's own LLRs are kept;
+    the CPU divides."""
+    inv = np.float32(1.0) / np.float32(llr_variance(snr))
+    y, lam, _ = channel(bits, trial_idx, seed, noise_scales(snr)[0],
+                        2.0 * float(inv))
+    return y, (lam if bits.device.type == "cuda" else llr(y, snr))
 
 
 def gen_random_codewords(g: np.ndarray, num: int,

@@ -2,12 +2,14 @@
 ``torch.distributed`` world (counterpart of
 ``ldpc_tpu/harness/experiment.py``).
 
-A batch step is split in two so that each half can be checked on its own:
-
-* :func:`channel_step`: codewords and trial indices -> received symbols y,
-  with noise keyed by ``(seed, trial index)``, so results do not depend on
-  batch size, batch order or device;
-* :func:`count_step`: y -> LLRs -> decode -> the eight counters of one batch.
+A batch step (:func:`make_experiment_step`) is one channel call
+(:func:`..channel.awgn.channel`: codewords and trial indices -> LLRs and the
+channel's hard-decision count, with noise keyed by ``(seed, trial index)``,
+so results do not depend on batch size, batch order or device; on the card
+one launch of the channel kernel, on the CPU plain ops), then the decode and
+the eight counters of the batch. :func:`channel_step` (-> received symbols
+y) and :func:`count_step` (y -> LLRs -> the same decode and counters) split
+that step in two for tests that check each half.
 
 Classification as the reference's ``exp`` (``experiment.h:109-118``):
 ``correct`` = certificate && valid codeword && equals the transmitted word;
@@ -49,7 +51,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..channel.awgn import noise_scales, snr_table, transmit, transmit_lanes
+from ..channel.awgn import (channel, hard_errors, noise_scales, snr_table,
+                            transmit)
 from ..codes.gf2 import is_codeword
 from ..decoders.base import DecodeResult, Decoder, resolve_device
 from ..utils.profiling import span, spanned
@@ -125,11 +128,6 @@ def channel_step(codewords: torch.Tensor, trial_idx: torch.Tensor,
     return transmit(codewords, snr, seed, trial_idx)
 
 
-def _hamming(codewords: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(B,) int64 channel hard-decision errors (``experiment.h:33-46``)."""
-    return torch.where(codewords == 0, y <= 0, y > 0).sum(dim=-1)
-
-
 def _lane_counters(h: torch.Tensor, res: DecodeResult,
                    codewords: torch.Tensor, hd: torch.Tensor) -> torch.Tensor:
     """Each lane's contribution to the counters: (8, B) int64 in
@@ -145,17 +143,25 @@ def _lane_counters(h: torch.Tensor, res: DecodeResult,
         res.iterations, dropped)])
 
 
+def _decode_count(decoder: Decoder, h: torch.Tensor,
+                  codewords: torch.Tensor, llrs: torch.Tensor,
+                  hd: torch.Tensor) -> torch.Tensor:
+    """Decode ``llrs`` and classify each frame: (8, B) int64 lane
+    counters."""
+    COUNTS["batches"] += 1
+    res = decoder.decode_batch(llrs)
+    with span("harness.count"):
+        return _lane_counters(h, res, codewords, hd)
+
+
 def count_step(decoder: Decoder, h: torch.Tensor, codewords: torch.Tensor,
                y: torch.Tensor, snr: float) -> torch.Tensor:
     """Decode y and classify each frame; returns the batch's counters as an
     (8,) int64 tensor in :data:`COUNTERS` order, on y's device."""
     with span("harness.channel"):
         llrs = noise_scales(snr)[1] * y
-    COUNTS["batches"] += 1
-    res = decoder.decode_batch(llrs)
-    with span("harness.count"):
-        return _lane_counters(h, res, codewords,
-                              _hamming(codewords, y)).sum(dim=1)
+        hd = hard_errors(codewords, y)
+    return _decode_count(decoder, h, codewords, llrs, hd).sum(dim=1)
 
 
 def make_experiment_step(decoder: Decoder, h, snr: float, seed: int,
@@ -163,11 +169,12 @@ def make_experiment_step(decoder: Decoder, h, snr: float, seed: int,
     """step(codewords (B, n) uint8, trial_idx (B,) int64) -> (8,) int64
     counters, everything on ``device``."""
     h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
+    sigma, scale = noise_scales(snr)
 
     def step(codewords, trial_idx):
         with span("harness.channel"):
-            y = channel_step(codewords, trial_idx, snr, seed)
-        return count_step(decoder, h_dev, codewords, y, snr)
+            _, llrs, hd = channel(codewords, trial_idx, seed, sigma, scale)
+        return _decode_count(decoder, h_dev, codewords, llrs, hd).sum(dim=1)
 
     return step
 
@@ -307,7 +314,7 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
         first, t_stop = sharding.span(t_stop)
     t_total = t_stop - first
     h_dev = torch.as_tensor(np.asarray(h, np.uint8), device=device)
-    inv_var = noise_scales(snr)[1]
+    sigma, scale = noise_scales(snr)
 
     @spanned("harness.channel")
     def make_lane(idx):
@@ -315,8 +322,8 @@ def run_streaming_experiment(decoder, h, codewords, snr: float, seed: int,
         trials ``first + idx``."""
         safe = idx.clamp(0, max(t_total - 1, 0)) + first
         cwb = cw.index_select(0, safe)
-        y = channel_step(cwb, safe, snr, seed)
-        return inv_var * y, cwb, _hamming(cwb, y)
+        _, llrs, hd = channel(cwb, safe, seed, sigma, scale)
+        return llrs, cwb, hd
 
     def start():
         idx = torch.arange(bsz, dtype=torch.int64, device=device)
@@ -391,13 +398,10 @@ def make_multi_snr_step(decoder: Decoder, h, snrs, seed: int,
 
     def step(codewords, trial_idx, snr_id):
         with span("harness.channel"):
-            y = transmit_lanes(codewords, sigmas[snr_id], seed, trial_idx)
-            llrs = inv_vars[snr_id][:, None] * y
-        COUNTS["batches"] += 1
-        res = decoder.decode_batch(llrs)
+            _, llrs, hd = channel(codewords, trial_idx, seed,
+                                  sigmas[snr_id], inv_vars[snr_id])
+        lanes = _decode_count(decoder, h_dev, codewords, llrs, hd)
         with span("harness.count"):
-            lanes = _lane_counters(h_dev, res, codewords,
-                                   _hamming(codewords, y))
             out = torch.zeros((len(COUNTERS), s_count), dtype=torch.int64,
                               device=lanes.device)
             return out.index_add_(1, snr_id, lanes)

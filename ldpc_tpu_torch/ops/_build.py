@@ -138,6 +138,10 @@ def load() -> ctypes.CDLL:
                          "ldpc_admm_iterate_occupancy"):
                 getattr(lib, name).argtypes = [i, i, i, ctypes.POINTER(i)]
                 getattr(lib, name).restype = i
+            lib.ldpc_awgn_channel.argtypes = [p, p, ll, p, p, f, f,
+                                              ctypes.c_uint, p, p, p, i, i,
+                                              p]
+            lib.ldpc_awgn_channel.restype = i
             lib.ldpc_smem_optin_limit.argtypes = [i]
             lib.ldpc_smem_optin_limit.restype = i
             lib.ldpc_cuda_error_string.argtypes = [i]

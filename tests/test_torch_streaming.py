@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_tpu_torch.channel.awgn import (noise_scales, snr_table, transmit,
-                                         transmit_lanes)
+from ldpc_tpu_torch.channel.awgn import (channel, noise_scales, snr_table,
+                                         transmit)
 from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
 from ldpc_tpu_torch.decoders import make_decoder
 from ldpc_tpu_torch.decoders.admm import QPADMMDecoder
@@ -176,11 +176,10 @@ def test_lane_noise_scale_equals_scalar_path(snr, small_h):
     idx = torch.arange(100, 108)
     sigmas, inv_vars = snr_table([1.0, snr], CPU)
     sid = torch.ones(8, dtype=torch.int64)
-    y = transmit_lanes(cw, sigmas[sid], 3, idx)
+    y, llrs, _ = channel(cw, idx, 3, sigmas[sid], inv_vars[sid])
     want = transmit(cw, snr, 3, idx)
     assert torch.equal(y, want)
-    assert torch.equal(inv_vars[sid][:, None] * y,
-                       noise_scales(snr)[1] * want)
+    assert torch.equal(llrs, noise_scales(snr)[1] * want)
     assert sigmas.dtype == inv_vars.dtype == torch.float32
 
 
