@@ -3,9 +3,13 @@ the window against the plain reference (``reference/``).
 
 For each sampled block the reference works out again, on its own, the
 generator matrix and the codewords (from the coefficient draw the run made
-from its seed), then, batch by batch at the timed batch size, the channel's
-LLRs of every trial, the decode, and the block's eight counters. The
-numbers compared, each against its limit in the cell's file:
+from its seed), then, batch by batch at the timed batch size and in trial
+order, the channel's LLRs of every trial, the decode, and the block's eight
+counters. Each reference lane is compared with the program's trial of the
+same index, whichever slot or batch the program's runner decoded it in (a
+streamed runner refills slots in the order they finish; ``record.py``
+keeps the program's rows by trial). The numbers compared, each against its
+limit in the cell's file:
 
 * ``llr_gap``: the largest |LLR| gap between what the decoder was given and
   the reference's channel (the channel layer);
@@ -33,13 +37,15 @@ from .reference import channel, classify, gf2
 
 class Block:
     """One block of the window: its index, noise seed, the program's eight
-    counters, and, when sampled, each batch's (LLRs, outputs)."""
+    counters, and, when sampled, ``trials``: what the decoder was given and
+    gave back, {"llrs", "bits", "success", "iterations", "dropped"}, each
+    with one row per trial in trial order (``dropped`` may be None)."""
 
-    def __init__(self, index: int, seed: int, counters, batches=None):
+    def __init__(self, index: int, seed: int, counters, trials=None):
         self.index = index
         self.seed = seed
         self.counters = [int(v) for v in counters]
-        self.batches = batches
+        self.trials = trials
 
 
 def draw_coefficients(seed: int, trials: int, k: int, device):
@@ -52,11 +58,12 @@ def draw_coefficients(seed: int, trials: int, k: int, device):
 
 def judge(ref, tables, h: np.ndarray, cw_seed: int, snr: float,
           blocks: list, batch: int, device) -> dict:
-    """The numbers compared over ``blocks``, each with all its batches of
-    ``batch`` trials. ``ref`` is the decoder's reference module and
-    ``tables`` its ``prepare``."""
+    """The numbers compared over ``blocks``, each with the rows of all its
+    trials. The reference decodes them in batches of ``batch`` in trial
+    order. ``ref`` is the decoder's reference module and ``tables`` its
+    ``prepare``."""
     g = gf2.nullspace(h)
-    trials = len(blocks[0].batches) * batch
+    trials = blocks[0].trials["llrs"].shape[0]
     cw = gf2.codewords(draw_coefficients(cw_seed, trials, g.shape[0],
                                          device), g)
     h_dev = torch.as_tensor(h, device=device)
@@ -68,16 +75,17 @@ def judge(ref, tables, h: np.ndarray, cw_seed: int, snr: float,
     own = torch.zeros_like(ctr)
     for block in blocks:
         prog += torch.tensor(block.counters, device=device)
-        for i, (llr_p, out_p) in enumerate(block.batches):
-            idx = torch.arange(i * batch, (i + 1) * batch, device=device)
-            sent = cw[i * batch:(i + 1) * batch]
+        for start in range(0, trials, batch):
+            stop = min(start + batch, trials)
+            idx = torch.arange(start, stop, device=device)
+            sent = cw[start:stop]
             y = channel.received(sent, snr, block.seed, idx)
             llr_r = channel.llrs(y, snr)
             out_r = ref.decode(tables, llr_r)
-            llr_gap = max(llr_gap, (llr_p.to(device) - llr_r).abs().max()
-                          .item())
-            out_p = {k: (v.to(device) if v is not None else None)
-                     for k, v in out_p.items()}
+            out_p = {k: (v[start:stop].to(device) if v is not None else None)
+                     for k, v in block.trials.items()}
+            llr_p = out_p.pop("llrs")
+            llr_gap = max(llr_gap, (llr_p - llr_r).abs().max().item())
             for name, d in ref.lanes_differ(out_p, out_r).items():
                 differ[name] = differ.get(name, 0) + int(d.sum())
             lanes += llr_r.shape[0]
@@ -103,16 +111,19 @@ def control_blocks(ref, tables, h: np.ndarray, cw_seed: int, snr: float,
     for k, seed in enumerate(seeds):
         ctr = torch.zeros(len(classify.COUNTERS), dtype=torch.int64,
                           device=device)
-        batches = []
+        parts = []
         for i in range(n_batches):
             idx = torch.arange(i * batch, (i + 1) * batch, device=device)
             sent = cw[i * batch:(i + 1) * batch]
             y = channel.received(sent, snr, seed, idx, control=True)
             llr = channel.llrs(y, snr)
             res = ref.decode(tables, llr, control=True)
-            batches.append((llr, res))
+            parts.append({"llrs": llr, **res})
             ctr += classify.counters(h_dev, res, sent, y)
-        out.append(Block(k, seed, ctr.tolist(), batches))
+        trials = {key: None if v is None else
+                  torch.cat([p[key] for p in parts])
+                  for key, v in parts[0].items()}
+        out.append(Block(k, seed, ctr.tolist(), trials))
     return out
 
 

@@ -1,17 +1,19 @@
-"""Layer: the decoder's cut search (``alp_cut_candidates``, ``cut_hashes``,
-``append_cuts`` in ``decoders/alp.py``). Device time under the benchmark's
-span around those three calls over the device's busy time."""
+"""Layer: the decoder's cut search (``alp_cut_candidates`` and
+``cut_hashes`` in ``decoders/alp.py``, each under the program's span
+``alp.cut_search``). Device time under that span over the device's busy
+time. ``append_cuts`` is not counted in it: it has its own span,
+``alp.append``."""
+from ldpc_bench.metrics import _program
+
+SPAN = "alp.cut_search"
 
 
 def install(ctx):
-    from ldpc_tpu_torch.decoders import alp
-    wrap = ctx.span("cut_search")
-    for name in ("alp_cut_candidates", "cut_hashes", "append_cuts"):
-        setattr(alp, name, wrap(getattr(alp, name)))
+    _program.install_spans(ctx)
 
 
 def read(ctx, s):
-    inside = s["busy_under_us"].get("bench.cut_search")
+    inside = s["busy_under_us"].get(SPAN)
     if inside is None or s["busy_us"] <= 0:
         return None
     return inside / s["busy_us"]

@@ -18,8 +18,10 @@ With ``--trace 1`` a fixed number of blocks (the cell's ``trace_blocks``)
 runs under ``torch.profiler`` instead, and the cell's per-layer metrics are
 read from that slice by their readers (``metrics/<name>.py``).
 
-Then the window's sampled blocks are judged against the plain reference
-(``check.py``), and the last line of standard output is the result: one JSON
+The sampled blocks are recorded trial by trial (``record.py``), from the
+batched runner or the streamed one alike, into buffers allocated during
+set-up. Then they are judged against the plain reference (``check.py``),
+and the last line of standard output is the result: one JSON
 object with ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
 (and ``breakdown`` when traced), and last ``check``, each number compared
 beside its limit, as on the last lines of standard error.
@@ -36,7 +38,6 @@ import json  # noqa: E402
 import random  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-from contextlib import nullcontext  # noqa: E402
 
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "ldpc_tpu"})
 
@@ -76,31 +77,6 @@ class Sampler:
             return k
         j = self.rng.randrange(k + 1)
         return j if j < self.size else None
-
-
-class Recorder:
-    """Wraps the decoder's ``decode_batch``: a profiler span while tracing,
-    and the LLRs and outputs of every batch of a sampled block."""
-
-    def __init__(self, decoder, ctx):
-        self.keep = None
-        inner = decoder.decode_batch
-
-        def decode_batch(llrs):
-            span = nullcontext()
-            if ctx.tracing:
-                import torch
-                span = torch.profiler.record_function("bench.decode")
-                ctx.batches += 1
-            with span:
-                res = inner(llrs)
-            if self.keep is not None:
-                self.keep.append((llrs, {
-                    "bits": res.bits, "success": res.success,
-                    "iterations": res.iterations, "dropped": res.dropped}))
-            return res
-
-        decoder.decode_batch = decode_batch
 
 
 def card_stamp(index: int) -> str:
@@ -163,6 +139,7 @@ def main(argv=None, device=None, sizes=None, prepare=None) -> int:
 
     from .check import Block, judge, verdict
     from .counts.peaks import peaks
+    from .record import Recorder
     from .trace import Context, breakdown, profile
 
     stages = {}
@@ -198,14 +175,18 @@ def main(argv=None, device=None, sizes=None, prepare=None) -> int:
         prepare(decoder)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     ctx = Context(decoder, cell.config, dev, peaks(name))
-    rec = Recorder(decoder, ctx)
+    rec = Recorder(decoder, block_trials, sz["check_blocks"], ctx)
 
     def run_block(k):
         return run_experiment(decoder, h, codewords, snr,
                               block_seed(args.seed, k), batch_size=batch,
                               device=dev, warmup=False)
 
-    run_block(-1)                       # warm-up: every shape of the cell
+    # warm-up: every shape of the cell, recorded as a sampled block is, so
+    # that the sample's buffers and copies exist before the window
+    with rec.block(0):
+        run_block(-1)
+    rec.allocate()
     stage("warmup")
     readers = {}
     if args.trace:
@@ -222,16 +203,16 @@ def main(argv=None, device=None, sizes=None, prepare=None) -> int:
         t_start = time.perf_counter()
         while True:
             slot = sampler.slot(k)
-            rec.keep = [] if slot is not None else None
-            res = run_block(k)
+            with rec.block(slot):
+                res = run_block(k)
             block = Block(k, block_seed(args.seed, k), [
                 res.total, res.correct, res.pseudo, res.sum_hamming,
                 res.sum_hamming_ok, res.sum_hamming_wrong,
-                res.sum_iterations, res.sum_dropped], rec.keep)
-            rec.keep = None
+                res.sum_iterations, res.sum_dropped])
             if slot is not None:
                 kept[slot] = block
             blocks.append(block)
+            ctx.trials += res.total
             k += 1
             if args.trace and k >= sz["trace_blocks"]:
                 break
@@ -273,10 +254,12 @@ def main(argv=None, device=None, sizes=None, prepare=None) -> int:
 
     # the program's state goes before the reference runs
     del codewords
-    sample = [b for b in kept if b is not None]
-    whole = bool(sample) and all(
-        b.batches is not None and len(b.batches) == sz["block_batches"]
-        for b in sample)
+    slots = [s for s, b in enumerate(kept) if b is not None]
+    whole = bool(slots) and rec.whole(slots)
+    sample = []
+    for s in slots:
+        kept[s].trials = rec.rows(s)
+        sample.append(kept[s])
     numbers = {}
     t_check = time.perf_counter()
     if whole:
@@ -306,6 +289,9 @@ def main(argv=None, device=None, sizes=None, prepare=None) -> int:
                     "check_s": time.perf_counter() - t_check,
                     "setup_stages_s": stages,
                     "bounds": ctx.notes}
+    if summary is not None:
+        out["about"]["trace"] = {k: summary[k] for k in
+                                 ("batches", "trials", "host_reads")}
     out["check"] = shown
     print(f"ldpc_bench: {cell.name} seed {args.seed} card {card}; "
           f"{len(blocks)} blocks of {block_trials} trials; bounds "

@@ -41,7 +41,7 @@ def test_idle_shares_split_the_gaps_by_the_innermost_program_span():
     ctx = _ctx()
     for name in IDLE:
         _reader(name + ".alp").install(ctx)
-    assert profiling.SPANS <= ctx.spans and "bench.decode" in ctx.spans
+    assert profiling.SPANS <= ctx.spans
     assert _reader("harness.idle_share.bp").read(ctx, _summary()) == \
         pytest.approx(0.12)
     assert _reader("decoder.idle_share.alp").read(ctx, _summary()) == \

@@ -32,7 +32,8 @@ class Context:
         self.tracing = False
         self.records = defaultdict(list)
         self.batches = 0
-        self.spans = {SPAN_PREFIX + "decode"}
+        self.trials = 0
+        self.spans = set()
         self.notes = {}
 
     def span(self, name: str):
@@ -134,7 +135,7 @@ def profile(ctx: Context, run) -> dict:
     if ctx.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(ctx.device)
-    ctx.batches = 0
+    ctx.batches = ctx.trials = 0
     with torch.profiler.profile(activities=acts) as prof:
         ctx.tracing = True
         t0 = time.perf_counter()
@@ -167,6 +168,7 @@ def profile(ctx: Context, run) -> dict:
                           for name, iv in marks.items()},
         "host_reads": sum(1 for e in dev_ops if "DtoH" in e.name),
         "batches": ctx.batches,
+        "trials": ctx.trials,
         "idle_by_host": _gaps(busy, host, ctx.spans, window),
     }
 
