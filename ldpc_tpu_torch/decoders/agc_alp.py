@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.gf2_gauss import GAUSS_BACKENDS, calculate_gauss_batched
+from ..ops.ipm_solver import ipm_capture
 from ..utils.profiling import spanned
 from .alp import _AdaptiveLPBase
 
@@ -35,7 +36,10 @@ class AGCALPDecoder(_AdaptiveLPBase):
 
     ``run_experiment`` streams AGC-ALP (``streaming="auto"``), as the JAX
     package does: finished lanes are drained after each cut round and
-    refilled with the next trials (``_AdaptiveLPBase.stream_*``).
+    refilled with the next trials (``_AdaptiveLPBase.stream_*``). With the
+    IPM as CUDA graphs, a stream's first chunk captures the solve shape of
+    every row tier at its width (:func:`..ops.ipm_solver.ipm_capture`), so
+    that no later chunk stops to capture a tier the stream reaches late.
     """
 
     use_gauss = True
@@ -57,9 +61,34 @@ class AGCALPDecoder(_AdaptiveLPBase):
         self.gauss_eps = float(gauss_eps)
         self.gauss_margin = float(gauss_margin)
         self.gauss_backend = gauss_backend
+        self._captured_widths: set[int] = set()
 
     @spanned("agc.gauss")
     def _gauss_sup(self, x, need=None):
         he = calculate_gauss_batched(self.h, x, self.gauss_eps, active=need,
                                      backend=self.gauss_backend)
         return he.bool()
+
+    def stream_chunk(self, st: dict) -> dict:
+        self._capture_tiers(st)
+        return super().stream_chunk(st)
+
+    def _capture_tiers(self, st: dict) -> None:
+        """Capture every row tier's solve graphs at the stream's width, once
+        per width, with the arguments :meth:`_solve` gives each tier (the
+        eager loop has none to capture)."""
+        c = st["c"]
+        bsz = c.shape[0]
+        if bsz in self._captured_widths or self.lp_backend != "ipm":
+            return
+        self._captured_widths.add(bsz)
+        warm = self.ipm_warm
+        for t in self._tiers + (self.capacity,):
+            ipm_capture(c, st["a"][:, :t], st["rhs"][:, :t],
+                        iters=self.ipm_iters, tol=self.ipm_tol,
+                        check_every=self.ipm_check_every, active=st["done"],
+                        matvec_backend=self.ipm_matvec_backend,
+                        factor_backend=self.ipm_factor_backend,
+                        graphs=self.ipm_graphs,
+                        x0=st["x"] if warm else None,
+                        y0=st["y"][:, :t] if warm else None)

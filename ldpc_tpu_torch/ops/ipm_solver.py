@@ -66,15 +66,23 @@ MAGMA on CUDA, which allocates inside the call and cannot be captured.
 What the parts run must be capturable: no host read, and no
 ``torch.where`` with a Python number (it copies the number to the card);
 ``masked_fill`` takes the number as an argument of its kernel.
+
+:data:`COUNTS` counts the solves, the chunks of Newton steps run and each
+host read of the chunk loop's flag, on either path and at no host read of
+its own; while a profiler records, the spans ``lp.capture`` (a solve
+shape's first call, which captures its graphs) and ``lp.copy_in`` (the
+inputs copied into the static buffers before the replays) name those
+steps.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned
 from . import gemv_kernel, ipm_graph
 from .chol import blocked_cho_solve, blocked_cholesky
 from .chol_ref import cholesky_nan
@@ -84,12 +92,19 @@ from .gemv_ref import PAD, gemv_ref, gemv_t_ref, normal_ref
 from .ipm_kernel import ipm_step_len, ipm_update
 from .lp_solver import require_full_f32
 
-__all__ = ["FACTOR_BACKENDS", "MATVEC_BACKENDS", "ipm_box_lp"]
+__all__ = ["COUNTS", "FACTOR_BACKENDS", "MATVEC_BACKENDS", "ipm_box_lp",
+           "ipm_capture"]
 
 MATVEC_BACKENDS = ("auto", "xla", "kernel")
 FACTOR_BACKENDS = ("auto", "xla", "blocked")
 
 _F32 = torch.float32
+
+# the solver's work and host reads, summed over every solve of the process:
+# ``solves`` (calls of ipm_box_lp), ``chunks`` (chunks of ``check_every``
+# Newton steps run, eager or replayed) and ``reads.poll`` (each host read of
+# the loop's flag, the first with the packed copy's guard)
+COUNTS: Counter = Counter()
 
 
 @dataclass
@@ -289,12 +304,14 @@ def _certificate(lp: _Lp, state):
 @spanned("lp.poll")
 def _poll(go) -> bool:
     """The chunk loop's host read of the flag."""
+    COUNTS["reads.poll"] += 1
     return bool(go)
 
 
 @spanned("lp.poll")
 def _first_read(go, guard) -> bool:
     """One host read for the first flag and the packed copy's guard."""
+    COUNTS["reads.poll"] += 1
     go, exact = torch.stack((go, guard)).tolist()
     if not exact:
         raise ValueError("ipm_box_lp: the kernel matvecs need cut rows with "
@@ -360,23 +377,31 @@ class _GraphSolve:
     def _finish(self):
         _store(self.out, _certificate(self.lp, self.state))
 
-    def run(self, c, a, b, x0, y0, active, iters: int):
-        guard = None
-        for dst, src in ((self.c, c), (self.b, b), (self.x0, x0),
-                         (self.y0, y0), (self.active, active)):
-            if dst is not None:
-                dst.copy_(src)
-        if self.kernel:
-            _, guard = pack_rows(a, out=self.rows)
-        else:
-            self.rows.copy_(a)
-        if self.parts is None:
-            bsz, dev = self.c.shape[0], self.c.device
-            keep = ((lambda: gemv_kernel._run_counts(dev, bsz)),) \
-                if self.kernel else ()
+    def capture(self) -> bool:
+        """Capture the parts, once; returns whether it did now."""
+        if self.parts is not None:
+            return False
+        bsz, dev = self.c.shape[0], self.c.device
+        keep = ((lambda: gemv_kernel._run_counts(dev, bsz)),) \
+            if self.kernel else ()
+        with span("lp.capture"):
             self.parts = ipm_graph.capture(
                 {"start": self._start, "boundary": self._boundary,
                  "chunk": self._chunk, "finish": self._finish}, dev, keep)
+        return True
+
+    def run(self, c, a, b, x0, y0, active, iters: int):
+        guard = None
+        with span("lp.copy_in"):
+            for dst, src in ((self.c, c), (self.b, b), (self.x0, x0),
+                             (self.y0, y0), (self.active, active)):
+                if dst is not None:
+                    dst.copy_(src)
+            if self.kernel:
+                _, guard = pack_rows(a, out=self.rows)
+            else:
+                self.rows.copy_(a)
+        self.capture()
         parts = self.parts
         ipm_graph.replay(parts["start"])
         ipm_graph.replay(parts["boundary"])
@@ -387,6 +412,7 @@ class _GraphSolve:
             if not go:
                 break
             ipm_graph.replay(parts["chunk"])
+            COUNTS["chunks"] += 1
             if k + 1 == n_chunks:
                 break
             ipm_graph.replay(parts["boundary"])
@@ -398,6 +424,45 @@ class _GraphSolve:
 # one per solve shape, for the life of the process (AGC-ALP: one per row
 # tier and batch width)
 _graph_solves: dict[tuple, _GraphSolve] = {}
+
+
+def _plan(fn, a_rows, iters, tol, active, delta, check_every, warm_x,
+          warm_y, warm_shift, factor_backend, stall_ratio, matvec_backend,
+          graphs):
+    """(the solve shape's :class:`_GraphSolve` or None for the eager loop,
+    kernel matvecs, blocked factor), the arguments checked."""
+    dev = a_rows.device
+    on_cuda = dev.type == "cuda"
+    if matvec_backend not in MATVEC_BACKENDS:
+        raise ValueError(f"unknown matvec_backend {matvec_backend!r}; "
+                         f"known: {MATVEC_BACKENDS}")
+    if factor_backend not in FACTOR_BACKENDS:
+        raise ValueError(f"unknown factor_backend {factor_backend!r}; "
+                         f"known: {FACTOR_BACKENDS}")
+    if iters < 1 or check_every < 1:
+        raise ValueError(f"iters ({iters}) and check_every ({check_every}) "
+                         f"must be >= 1")
+    if graphs and not on_cuda:
+        raise ValueError(f"{fn}: graphs=True needs a CUDA tensor, got {dev}")
+    if matvec_backend == "auto":
+        matvec_backend = "kernel" if on_cuda else "xla"
+    if factor_backend == "auto":
+        factor_backend = "blocked" if on_cuda else "xla"
+    kernel, blocked = matvec_backend == "kernel", factor_backend == "blocked"
+    if graphs and not blocked:
+        raise ValueError(f"{fn}: graphs=True needs factor_backend "
+                         f"'blocked': the plain factor's cholesky_solve "
+                         f"(MAGMA on CUDA) cannot be captured")
+    bsz, r_cap, n = a_rows.shape
+    if not ((on_cuda and blocked if graphs is None else graphs) and bsz):
+        return None, kernel, blocked
+    key = (dev.index, bsz, r_cap, n, kernel, blocked, warm_x, warm_y,
+           active is not None, delta, check_every, tol, stall_ratio,
+           warm_shift)
+    solve = _graph_solves.get(key)
+    if solve is None:
+        solve = _graph_solves[key] = _GraphSolve(dev, *key[1:])
+    return solve, kernel, blocked
 
 
 @spanned("lp.solve")
@@ -428,39 +493,16 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     err (B,) = max(primal violation, relative duality gap)).
     """
     require_full_f32("ipm_box_lp")
-    dev = a_rows.device
-    on_cuda = dev.type == "cuda"
-    if matvec_backend not in MATVEC_BACKENDS:
-        raise ValueError(f"unknown matvec_backend {matvec_backend!r}; "
-                         f"known: {MATVEC_BACKENDS}")
-    if factor_backend not in FACTOR_BACKENDS:
-        raise ValueError(f"unknown factor_backend {factor_backend!r}; "
-                         f"known: {FACTOR_BACKENDS}")
-    if iters < 1 or check_every < 1:
-        raise ValueError(f"iters ({iters}) and check_every ({check_every}) "
-                         f"must be >= 1")
-    if graphs and not on_cuda:
-        raise ValueError(f"ipm_box_lp: graphs=True needs a CUDA tensor, got "
-                         f"{dev}")
-    if matvec_backend == "auto":
-        matvec_backend = "kernel" if on_cuda else "xla"
-    if factor_backend == "auto":
-        factor_backend = "blocked" if on_cuda else "xla"
-    kernel, blocked = matvec_backend == "kernel", factor_backend == "blocked"
-    if graphs and not blocked:
-        raise ValueError("ipm_box_lp: graphs=True needs factor_backend "
-                         "'blocked': the plain factor's cholesky_solve (MAGMA "
-                         "on CUDA) cannot be captured")
-    bsz, r_cap, n = a_rows.shape
-    if (on_cuda and blocked if graphs is None else graphs) and bsz:
-        key = (dev.index, bsz, r_cap, n, kernel, blocked, x0 is not None,
-               y0 is not None, active is not None, delta, check_every, tol,
-               stall_ratio, warm_shift)
-        solve = _graph_solves.get(key)
-        if solve is None:
-            solve = _graph_solves[key] = _GraphSolve(dev, *key[1:])
+    solve, kernel, blocked = _plan(
+        "ipm_box_lp", a_rows, iters, tol, active, delta, check_every,
+        x0 is not None, y0 is not None, warm_shift, factor_backend,
+        stall_ratio, matvec_backend, graphs)
+    COUNTS["solves"] += 1
+    if solve is not None:
         return solve.run(c, a_rows, b, x0, y0, active, iters)
 
+    dev = a_rows.device
+    bsz, r_cap, n = a_rows.shape
     c = c.to(_F32)
     a = a_rows.to(_F32)
     guard = None
@@ -483,6 +525,25 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
         guard = None
         if not go:
             break
+        COUNTS["chunks"] += 1
         for _ in range(check_every):
             state = _newton(lp, state)
     return _certificate(lp, state)
+
+
+def ipm_capture(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
+                active=None, delta: float = 1e-6, check_every: int = 5,
+                x0=None, y0=None, warm_shift: float = 1e-2,
+                factor_backend: str = "auto", stall_ratio: float = 0.8,
+                matvec_backend: str = "auto",
+                graphs: bool | None = None) -> bool:
+    """Capture now the CUDA graphs that :func:`ipm_box_lp` would replay for
+    the same arguments (their shapes and settings; no value is read), so
+    that the shape's first solve replays at once. Solves nothing and moves
+    no counter but ``ipm_graph.CAPTURES``. Returns whether it captured:
+    False on the eager path and for a shape already captured."""
+    require_full_f32("ipm_capture")
+    solve = _plan("ipm_capture", a_rows, iters, tol, active, delta,
+                  check_every, x0 is not None, y0 is not None, warm_shift,
+                  factor_backend, stall_ratio, matvec_backend, graphs)[0]
+    return solve is not None and solve.capture()
