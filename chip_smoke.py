@@ -73,10 +73,18 @@ printing one line before the next starts:
    * 2**-23 * sum |terms| per entry, the products being exact for +-1/0
    rows and the kernel's three bf16 planes of d); the
    diagonal-block Cholesky on 128 SPD 64 x 64 blocks and one that is not
-   (within 1e-4 of the twin's scale, NaN in that lane only); and the whole
-   blocked factor and solve on the batch's last normal matrix (its residual
-   at most 10x that of ``cholesky_ex`` + ``cholesky_solve`` plus 1e-3 of
-   |r|, the rule of ``tests/test_chol.py``). Times each with CUDA events,
+   (within 1e-4 of the twin's scale, NaN in that lane only); and the
+   Newton system's factor and two solves on the batch's last normal matrix
+   by the fused kernels (``csrc/chol_fused.cu``, one launch each, what
+   ``blocked_cholesky`` takes at n = 280) and by the blocked chain they
+   replaced (``bmm`` panels around ``chol_diag_inv``, five launches of it),
+   each residual at most 10x that of ``cholesky_ex`` + ``cholesky_solve``
+   plus 1e-3 of |r| (the rule of ``tests/test_chol.py``), the fused factor
+   within 2e-4 of its twin's scale; the fused factor and solve timed as
+   CUDA graphs beside their bounds and twins, factor + two solves beside
+   the chain's, and their launches; then H02's n = 640, past the fused
+   kernels' limit, by the chain (ten ``chol_diag_inv`` launches, no fused
+   one). Times each with CUDA events,
    the diagonal-block kernel also as a CUDA graph (device time);
    the matvecs, their plain versions, ``bmm`` on the float32 slice and the
    pack as CUDA graphs of calls (device time), warm and with a cold L2,
@@ -97,7 +105,7 @@ printing one line before the next starts:
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
    capacity 1408, the IPM as CUDA graphs, the default on CUDA), which
    streams (``streaming="auto"``: finished lanes refilled after each cut
-   round), CSVs under ``build/``, with the seven kernels' launch counts
+   round), CSVs under ``build/``, with the eight kernels' launch counts
    reset before and read after, and the matvecs' and the normal matrix's
    launches per row tier. Gates: FER within |z| < 3.5 of the reference's
    0.8704, no cut dropped, every kernel launched. Then the same 512 trials
@@ -499,10 +507,10 @@ def _sass_mix(lib: str) -> str:
     """Static counts of all instructions and of a few opcodes in the SASS
     of the kernels (``cuobjdump -sass``), to read that the int8 unpack of
     the packed-row kernels compiled to PRMT + FADD, that the normal matrix
-    runs on the tensor cores (HMMA, fed by LDSM), and how large the unrolled
-    diagonal-block and BP kernels are, and that the GF(2) elimination's
-    block barriers are the two around its column loop (BAR 2): the counts
-    cover the whole kernel, not only its loops."""
+    runs on the tensor cores (HMMA, fed by LDSM), how large the unrolled
+    diagonal-block, fused Cholesky and BP kernels are, and that the GF(2)
+    elimination's block barriers are the two around its column loop (BAR
+    2): the counts cover the whole kernel, not only its loops."""
     from collections import Counter
 
     from ldpc_tpu_torch.ops import _build
@@ -515,7 +523,8 @@ def _sass_mix(lib: str) -> str:
     for line in sass.splitlines():
         if "Function :" in line:
             found = re.search(r"\d((?:gemv_[a-z_]*|normal_build|pdhg_chunk|"
-                              r"chol_diag_inv|bp_decode|gf2_gauss)_kernel)"
+                              r"chol_diag_inv|chol_factor|chol_solve|"
+                              r"bp_decode|gf2_gauss)_kernel)"
                               + TEMPLATE_ARGS, line)
             name = (found.group(1) + _template(found.group(2))
                     if found else None)
@@ -940,7 +949,8 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
                 "gemv_fwd": ("gemv_kernel", "GEMV_LAUNCHES"),
                 "gemv_tr": ("gemv_kernel", "GEMV_T_LAUNCHES"),
                 "normal_build": ("gemv_kernel", "NORMAL_LAUNCHES"),
-                "chol_diag_inv": ("chol_kernel", "LAUNCHES"),
+                "chol_factor": ("chol_kernel", "FACTOR_LAUNCHES"),
+                "chol_solve": ("chol_kernel", "SOLVE_LAUNCHES"),
                 "ipm_step_len": ("ipm_kernel", "STEP_LEN_LAUNCHES"),
                 "ipm_update": ("ipm_kernel", "UPDATE_LAUNCHES")}
 
@@ -948,6 +958,7 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
 # every kernel of the port
 ALL_COUNTERS = {"bp_decode": ("bp_kernel", "LAUNCHES"),
                 "pdhg_chunk": ("pdhg_kernel", "LAUNCHES"), **AGC_COUNTERS,
+                "chol_diag_inv": ("chol_kernel", "LAUNCHES"),
                 "admm_iterate": ("admm_kernel", "ITERATE_LAUNCHES"),
                 "awgn_channel": ("channel_kernel", "LAUNCHES")}
 
@@ -1455,9 +1466,13 @@ def phase_agc_kernels_vs_ref():
     from ldpc_tpu_torch import bench
     from ldpc_tpu_torch.codes.gf2 import gf2_nullspace
     from ldpc_tpu_torch.codes.io import read_pcm
-    from ldpc_tpu_torch.ops.chol import blocked_cho_solve, blocked_cholesky
-    from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv
-    from ldpc_tpu_torch.ops.chol_ref import chol_diag_inv_ref, cholesky_nan
+    from ldpc_tpu_torch.ops import chol_kernel
+    from ldpc_tpu_torch.ops.chol import (blocked_cho_solve, blocked_cholesky,
+                                         chain_cholesky)
+    from ldpc_tpu_torch.ops.chol_kernel import chol_diag_inv, chol_factor
+    from ldpc_tpu_torch.ops.chol_ref import (chol_diag_inv_ref,
+                                             chol_factor_ref, chol_solve_ref,
+                                             cholesky_nan)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1547,45 +1562,128 @@ def phase_agc_kernels_vs_ref():
           f"call; bound {chol_row['bound_ms']:.5f} ms by "
           f"{chol_row['bound_by']}", flush=True)
 
-    # the whole blocked factor and solve on a real normal matrix
+    # the Newton system's factor and its two solves on a real normal
+    # matrix: the fused kernels (one launch each; what blocked_cholesky takes
+    # at n = 280) against the blocked chain they replaced (bmm panels around
+    # chol_diag_inv) and against cholesky_ex + cholesky_solve
     r = torch.randn((AGC_LANES, n), generator=gen, device=dev)
 
-    def blocked():
-        return blocked_cho_solve(blocked_cholesky(m_real), r)
+    def fused_step():
+        fac = blocked_cholesky(m_real)
+        blocked_cho_solve(fac, r)
+        return blocked_cho_solve(fac, r)
+
+    def chain_step():
+        fac = chain_cholesky(m_real)
+        chol_solve_ref(fac.l, fac.inv_diag, r, n)
+        return chol_solve_ref(fac.l, fac.inv_diag, r, n)
 
     def plain():
         return torch.cholesky_solve(r[..., None],
                                     cholesky_nan(m_real))[..., 0]
 
-    xb, xp = blocked(), plain()
+    counts0 = (chol_kernel.FACTOR_LAUNCHES, chol_kernel.SOLVE_LAUNCHES,
+               chol_kernel.LAUNCHES)
+    xf, xb, xp = fused_step(), chain_step(), plain()
     torch.cuda.synchronize()
-    fin_b, fin_p = xb.isfinite().all(dim=1), xp.isfinite().all(dim=1)
-    both = fin_b & fin_p
-    one_only = int((fin_b != fin_p).sum())
+    launches = [a - b for a, b in zip((chol_kernel.FACTOR_LAUNCHES,
+                                       chol_kernel.SOLVE_LAUNCHES,
+                                       chol_kernel.LAUNCHES), counts0)]
+    fin_f, fin_b = xf.isfinite().all(dim=1), xb.isfinite().all(dim=1)
+    fin_p = xp.isfinite().all(dim=1)
+    both = fin_f & fin_b & fin_p
+    one_only = int(((fin_f != fin_p) | (fin_b != fin_p)).sum())
 
     def resid(v):
         return float((torch.bmm(m_real[both], v[both][..., None])[..., 0]
                       - r[both]).abs().max())
 
-    rb, rp = resid(xb), resid(xp)
-    rel = float((xb - xp)[both].abs().max()) / float(xp[both].abs().max())
-    ms, plain_ms = _time_ms(blocked), _time_ms(plain)
+    rf, rb, rp = resid(xf), resid(xb), resid(xp)
+    rel = float((xf - xp)[both].abs().max()) / float(xp[both].abs().max())
+    (lf, vf), (lt, vt) = chol_factor(m_real), chol_factor_ref(m_real)
+    torch.cuda.synchronize()
+    good = lt.isfinite().flatten(1).all(dim=1) & lf.isfinite().flatten(
+        1).all(dim=1)
+    twin_err = max(float((lf - lt)[good].abs().max())
+                   / float(lt[good].abs().max()),
+                   float((vf - vt)[:, good].abs().max())
+                   / float(vt[:, good].abs().max()))
     r_max = float(r.abs().max())
     diag = m_real.diagonal(dim1=1, dim2=2)
-    print(f"[7 agc-kernels] blocked factor + solve on the batch's normal "
-          f"matrix {tuple(m_real.shape)} (diagonal {float(diag.min()):.3e}"
-          f"..{float(diag.max()):.3e}): residual {rb:.3e} vs cholesky_ex + "
-          f"cholesky_solve {rp:.3e} on the {int(both.sum())} lanes both "
-          f"factor (bound 10x + 1e-3 |r|), max |dx| / max |x| {rel:.3e}; "
-          f"lanes broken down: blocked {int((~fin_b).sum())}, plain "
-          f"{int((~fin_p).sum())}, in one only {one_only} (bound "
-          f"{int((1.0 - AGC_AGREE_MIN) * AGC_LANES)}); blocked {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms", flush=True)
-    if not (rb <= 10.0 * rp + 1e-3 * r_max
+    factor_ms = _graph_ms(blocked_cholesky, [(m_real,)] * WARM_CALLS)
+    fac = blocked_cholesky(m_real)
+    solve_ms = _graph_ms(blocked_cho_solve, [(fac, r)] * WARM_CALLS)
+    step_ms = _graph_ms(fused_step, [()] * 2)
+    chain_ms = _graph_ms(chain_step, [()] * 2)
+    twin_ms = _time_ms(lambda: chol_factor_ref(m_real), repeats=3)
+    solve_twin_ms = _time_ms(lambda: chol_solve_ref(lt, vt, r, n),
+                             repeats=3)
+    # the factor's work at the unpadded n (ldpc_bench/counts/
+    # chol_factor.py): n^3 / 3 operations and w^3 / 3 for each diagonal
+    # block's inverse; M read, L's and the blocks' lower triangles written
+    widths = [min(nb, n - qs) for qs in range(0, n, nb)]
+    bound = _bound(4 * AGC_LANES * (n * n + n * (n + 1) / 2 + sum(
+        w * (w + 1) / 2 for w in widths)), AGC_LANES * (n ** 3 / 3 + sum(
+            w ** 3 / 3 for w in widths)), F32_OPS_PER_S)
+    # a solve: L's lower triangle and the blocks read twice, r read, x
+    # written; 2 n^2 operations
+    solve_bound = _bound(4 * AGC_LANES * (2 * (n * (n + 1) / 2 + sum(
+        w * (w + 1) / 2 for w in widths)) + 2 * n), AGC_LANES * 2 * n * n,
+        F32_OPS_PER_S)
+    print(f"[7 agc-kernels] Newton system on the batch's normal matrix "
+          f"{tuple(m_real.shape)} (diagonal {float(diag.min()):.3e}.."
+          f"{float(diag.max()):.3e}): fused factor {factor_ms:.5f} ms and "
+          f"solve {solve_ms:.5f} ms of device time (CUDA graph; bounds "
+          f"{bound['bound_ms']:.5f} by {bound['bound_by']} and "
+          f"{solve_bound['bound_ms']:.5f} by {solve_bound['bound_by']}; "
+          f"twins {twin_ms:.3f} and {solve_twin_ms:.3f} ms by events); "
+          f"factor + two solves {step_ms:.5f} ms fused against "
+          f"{chain_ms:.5f} ms by the blocked chain; launches of the fused "
+          f"factor, solve and chol_diag_inv for one step of each "
+          f"{launches} (want [1, 2, 5]); fused against the twin "
+          f"{twin_err:.3e} of the scale on the {int(good.sum())} lanes both "
+          f"factor; residual fused {rf:.3e}, chain {rb:.3e}, cholesky_ex + "
+          f"cholesky_solve {rp:.3e} on the {int(both.sum())} lanes all "
+          f"three solve (bound 10x + 1e-3 |r|), max |dx| / max |x| "
+          f"{rel:.3e}; lanes broken down: fused {int((~fin_f).sum())}, chain "
+          f"{int((~fin_b).sum())}, plain {int((~fin_p).sum())}, differing "
+          f"from plain {one_only} (bound "
+          f"{int((1.0 - AGC_AGREE_MIN) * AGC_LANES)})", flush=True)
+    if not (rf <= 10.0 * rp + 1e-3 * r_max and rb <= 10.0 * rp + 1e-3 * r_max
             and one_only <= (1.0 - AGC_AGREE_MIN) * AGC_LANES
-            and int(both.sum()) >= AGC_AGREE_MIN * AGC_LANES):
-        raise AssertionError("blocked factor + solve disagrees with "
-                             "cholesky_ex + cholesky_solve")
+            and int(both.sum()) >= AGC_AGREE_MIN * AGC_LANES
+            and twin_err <= 2e-4 and launches == [1, 2, 5]):
+        raise AssertionError("the fused factor + solve disagrees with the "
+                             "chain or with cholesky_ex + cholesky_solve")
+    shape = f"{AGC_LANES}x{n}x{n} f32, the batch's normal matrix"
+    rows["chol_factor"] = [{"max_abs_err": twin_err, "ms": factor_ms,
+                            "device_ms": factor_ms, "plain_ms": twin_ms,
+                            "library_ms": None, "chain_step_ms": chain_ms,
+                            "step_ms": step_ms, "shape": shape, **bound}]
+    rows["chol_solve"] = [{"max_abs_err": rel, "ms": solve_ms,
+                           "device_ms": solve_ms, "plain_ms": solve_twin_ms,
+                           "library_ms": None, "shape": shape,
+                           **solve_bound}]
+    # H02's width takes the blocked chain (past the fused kernels' limit)
+    m02 = torch.randn((16, 640, 640), generator=gen, device=dev)
+    m02 = m02 @ m02.transpose(1, 2) / 640 + torch.eye(640, device=dev)
+    r02 = torch.randn((16, 640), generator=gen, device=dev)
+    before = (chol_kernel.FACTOR_LAUNCHES, chol_kernel.LAUNCHES)
+    x02 = blocked_cho_solve(blocked_cholesky(m02), r02)
+    x02_ref = torch.cholesky_solve(r02[..., None], cholesky_nan(m02))[..., 0]
+    torch.cuda.synchronize()
+    grew = (chol_kernel.FACTOR_LAUNCHES - before[0],
+            chol_kernel.LAUNCHES - before[1])
+    r02_res = float((torch.bmm(m02, x02[..., None])[..., 0] - r02).abs().max())
+    r02_ref = float((torch.bmm(m02, x02_ref[..., None])[..., 0]
+                     - r02).abs().max())
+    print(f"[7 agc-kernels] n = 640 (H02): blocked chain, launches of the "
+          f"fused factor and chol_diag_inv {list(grew)} (want [0, 10]), "
+          f"residual {r02_res:.3e} against cholesky_solve's {r02_ref:.3e}",
+          flush=True)
+    if grew != (0, 10) or not r02_res <= 10 * r02_ref + 1e-3 * float(
+            r02.abs().max()):
+        raise AssertionError("the blocked chain at n = 640 failed")
     rows.update(_ipm_step_tiers(gen))
     return rows
 
@@ -1685,14 +1783,25 @@ class _LaneLog:
     def __exit__(self, *exc):
         del self.cls.stream_chunk
 
+    def _finishing(self) -> list:
+        """The records up to the last round in which a lane finished: the
+        runner's poll cadence follows the host's clock, so the rounds it
+        runs after its last trial finished (no lane finishes in them) vary
+        from run to run."""
+        rows = list(self.rows)
+        while rows and bool((rows[-1] == -1).all()):
+            rows.pop()
+        return rows
+
     def same_as(self, other) -> tuple[bool, int]:
         """(equal records, the first round whose records differ or -1)."""
         import torch
-        for i, (a, b) in enumerate(zip(self.rows, other.rows)):
+        mine, theirs = self._finishing(), other._finishing()
+        for i, (a, b) in enumerate(zip(mine, theirs)):
             if not torch.equal(a, b):
                 return False, i
-        if len(self.rows) != len(other.rows):
-            return False, min(len(self.rows), len(other.rows))
+        if len(mine) != len(theirs):
+            return False, min(len(mine), len(theirs))
         return True, -1
 
 
@@ -1857,7 +1966,9 @@ def phase_agc_path():
     print(f"[8 agc path] graph vs eager on the same {AGC_TRIALS} trials: "
           f"every lane's bits, success, rounds, cum_h, cum_g and dropped "
           f"equal {lanes_same} (first differing round {first}, of "
-          f"{len(glog.rows)} / {len(elog.rows)}); counters equal "
+          f"{len(glog.rows)} / {len(elog.rows)}, the last lane finishing in "
+          f"round {len(glog._finishing())} / {len(elog._finishing())}); "
+          f"counters equal "
           f"{same_counters}; every kernel's launches equal {gl == el}",
           flush=True)
     if not (lanes_same and same_counters and gl == el):
@@ -3300,13 +3411,19 @@ def main() -> int:
              "ldpc_tpu/ops/pallas/gemv_kernel.py:142"),
             ("chol_diag_inv", "chol_diag_inv.cu",
              "ldpc_tpu/ops/pallas/chol_kernel.py:45"),
+            ("chol_factor", "chol_fused.cu",
+             "XLA panels around the Pallas _diag_inv_kernel, "
+             "ldpc_tpu/ops/pallas/chol_kernel.py blocked_cholesky"),
+            ("chol_solve", "chol_fused.cu",
+             "XLA block matvecs, ldpc_tpu/ops/pallas/chol_kernel.py "
+             "blocked_cho_solve"),
             ("ipm_step_len", "ipm_step.cu",
              "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267"),
             ("ipm_update", "ipm_step.cu",
              "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267")):
         entry = {"name": name, "route": "cuda",
                  "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
-                 "launches": agc_launches[name]}
+                 "launches": agc_launches.get(name, 0)}
         if name == "gf2_eliminate":
             # the largest error over the three shapes; the times at the
             # path's shape (optimalH), the other shapes' beside them

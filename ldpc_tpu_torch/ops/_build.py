@@ -120,6 +120,12 @@ def load() -> ctypes.CDLL:
             lib.ldpc_normal_build.restype = i
             lib.ldpc_chol_diag_inv.argtypes = [p, p, p, i, i, p]
             lib.ldpc_chol_diag_inv.restype = i
+            lib.ldpc_chol_factor.argtypes = [p, p, p, i, i, i, p]
+            lib.ldpc_chol_factor.restype = i
+            lib.ldpc_chol_solve.argtypes = [p, p, p, p, i, i, i, p]
+            lib.ldpc_chol_solve.restype = i
+            lib.ldpc_chol_fused_max_n.argtypes = []
+            lib.ldpc_chol_fused_max_n.restype = i
             lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.ldpc_gf2_gauss.restype = i
             f = ctypes.c_float

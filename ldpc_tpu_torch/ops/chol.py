@@ -4,19 +4,28 @@
 
 Left-looking by block column of ``nb`` (64) columns. The matrix is padded
 with an identity tail so that every block is full size (n = 280 -> 320, five
-blocks). The panel updates and the block matvecs are ``torch.bmm`` glue; the
-sequential part, factoring a diagonal block and inverting its triangle, is
-:func:`..ops.chol_kernel.chol_diag_inv` (the CUDA kernel on a CUDA tensor,
-its twin :mod:`..ops.chol_ref` on a CPU tensor). The solve uses the inverted
-diagonal blocks, so ``cho_solve`` becomes block matvecs with no sequential
-triangular solve.
+blocks). The solve uses the inverted diagonal blocks, so ``cho_solve``
+becomes block matvecs with no sequential triangular solve.
+
+Two implementations, chosen by what the input shows: at ``nb`` 64 and n up
+to :data:`..ops.chol_kernel.FUSED_MAX_N` (320) the fused kernels of
+:mod:`..ops.chol_kernel` (``csrc/chol_fused.cu``): the whole factor in one
+launch and each solve in one, one block per lane (on a CPU tensor their
+twins, ``chol_factor_ref`` and ``chol_solve_ref`` of :mod:`..ops.chol_ref`).
+Any other shape (H02's n = 640) takes the chain: the panel updates are
+``torch.bmm`` glue and the sequential part, factoring a diagonal block and
+inverting its triangle, is :func:`..ops.chol_kernel.chol_diag_inv` (the
+CUDA kernel on a CUDA tensor, its twin on a CPU tensor); its solve is the
+twin's block substitution. Both give the same :class:`CholFactors`.
 
 A lane that is not SPD comes out NaN in that lane only (the diagonal step's
 rule), which the IPM's NaN-freeze relies on.
 
 JAX subtracts the earlier block columns one at a time; here each panel
-update is one ``bmm`` over all of them (fewer launches; float32 sums in
-another order, so the two agree to rounding).
+update is one ``bmm`` (the chain) or one sum in column order (the fused
+kernel), and the fused kernel solves the rows below a diagonal block
+against it rather than multiplying by its inverse: float32 sums in another
+order, so the paths agree to rounding.
 """
 from __future__ import annotations
 
@@ -24,10 +33,12 @@ from dataclasses import dataclass
 
 import torch
 
-from .chol_kernel import chol_diag_inv
-from .gemv_ref import gemv_ref, gemv_t_ref
+from .chol_kernel import (FUSED_MAX_N, FUSED_NB, chol_diag_inv, chol_factor,
+                          chol_solve)
+from .chol_ref import chol_solve_ref
 
-__all__ = ["CholFactors", "blocked_cho_solve", "blocked_cholesky"]
+__all__ = ["CholFactors", "blocked_cho_solve", "blocked_cholesky",
+           "chain_cholesky", "fused"]
 
 
 @dataclass
@@ -44,11 +55,26 @@ class CholFactors:
     n: int
 
 
+def fused(n: int, nb: int) -> bool:
+    """Whether the fused kernels factor and solve this shape."""
+    return nb == FUSED_NB and 1 <= n <= FUSED_MAX_N
+
+
 def blocked_cholesky(m: torch.Tensor, nb: int = 64) -> CholFactors:
     """Batched blocked Cholesky of SPD ``m`` (B, n, n) -> CholFactors."""
     if m.dim() != 3 or m.shape[1] != m.shape[2]:
         raise ValueError(f"blocked_cholesky: m must be (B, n, n), got "
                          f"{tuple(m.shape)}")
+    n = m.shape[1]
+    if fused(n, nb):
+        l, inv_diag = chol_factor(m.to(torch.float32).contiguous())
+        return CholFactors(l=l, inv_diag=inv_diag, nb=nb, n=n)
+    return chain_cholesky(m, nb)
+
+
+def chain_cholesky(m: torch.Tensor, nb: int = 64) -> CholFactors:
+    """The chain: ``bmm`` panels around :func:`chol_diag_inv`, for any n
+    (``blocked_cholesky`` takes it past the fused kernels' limit)."""
     bsz, n, _ = m.shape
     p_cnt = -(-n // nb)
     n_pad = p_cnt * nb
@@ -80,21 +106,7 @@ def blocked_cho_solve(fac: CholFactors, r: torch.Tensor) -> torch.Tensor:
     """Solve M x = r for each lane given ``blocked_cholesky`` factors:
     r (B, n) -> x (B, n). Forward then backward block substitution against
     the pre-inverted diagonal blocks."""
-    nb, n, l = fac.nb, fac.n, fac.l
-    n_pad = l.shape[1]
-    p_cnt = n_pad // nb
-    z = r.new_zeros((r.shape[0], n_pad), dtype=torch.float32)
-    z[:, :n] = r
-    for q in range(p_cnt):                        # L z = r
-        qs, qe = q * nb, (q + 1) * nb
-        acc = z[:, qs:qe]
-        if q:
-            acc = acc - gemv_ref(l[:, qs:qe, :qs], z[:, :qs])
-        z[:, qs:qe] = gemv_ref(fac.inv_diag[q], acc)
-    for q in range(p_cnt - 1, -1, -1):            # L^T x = z
-        qs, qe = q * nb, (q + 1) * nb
-        acc = z[:, qs:qe]
-        if qe < n_pad:
-            acc = acc - gemv_t_ref(l[:, qe:, qs:qe], z[:, qe:])
-        z[:, qs:qe] = gemv_t_ref(fac.inv_diag[q], acc)
-    return z[:, :n]
+    if fused(fac.n, fac.nb):
+        return chol_solve(fac.l, fac.inv_diag,
+                          r.to(torch.float32).contiguous(), fac.n)
+    return chol_solve_ref(fac.l, fac.inv_diag, r, fac.n)

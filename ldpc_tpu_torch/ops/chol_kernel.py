@@ -1,5 +1,6 @@
-"""Python wrapper of the Cholesky diagonal-block kernel
-(``csrc/chol_diag_inv.cu``).
+"""Python wrappers of the Cholesky kernels: the diagonal-block kernel
+(``csrc/chol_diag_inv.cu``) and the fused factor and solve
+(``csrc/chol_fused.cu``).
 
 Replaces ``ldpc_tpu/ops/pallas/chol_kernel.py`` (``_diag_inv_kernel``,
 called by ``_chol_diag_inv``). :func:`chol_diag_inv` picks by the device of
@@ -14,20 +15,39 @@ source, chosen from variant builds timed on the H100, ``PERF.md``), and
 takes blocks of at most 64 x 64 (the blocked Cholesky's ``nb``); a larger
 ``nb`` is refused on the card.
 
-``LAUNCHES`` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+:func:`chol_factor` and :func:`chol_solve` are the whole blocked factor
+and each of its solves in one launch, one block of 256 threads per lane
+(the IPM's Newton system at n <= ``FUSED_MAX_N``; ``ops/chol.py`` chooses
+them by n). They pick by device as :func:`chol_diag_inv` does: a CPU tensor
+goes to the twins :func:`..ops.chol_ref.chol_factor_ref` and
+:func:`..ops.chol_ref.chol_solve_ref`. The results are the blocked factor's
+(``ops/chol.py`` ``CholFactors``: L padded to n_pad = n rounded up to 64,
+the inverted 64 x 64 diagonal blocks).
+
+``LAUNCHES`` counts the diagonal kernel's launches, ``FACTOR_LAUNCHES`` and
+``SOLVE_LAUNCHES`` the fused kernels', and ``FACTOR_SHAPE_LAUNCHES`` the
+fused factor's by (lanes, n), so a run can show that its main path went
+through the kernels (``ops/ipm_graph.py`` adds them at each graph replay).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from . import _build
-from .chol_ref import chol_diag_inv_ref
+from .chol_ref import chol_diag_inv_ref, chol_factor_ref, chol_solve_ref
 
 LAUNCHES = 0
+FACTOR_LAUNCHES = 0
+SOLVE_LAUNCHES = 0
+FACTOR_SHAPE_LAUNCHES: Counter = Counter()
 _MAX_NB = 64  # csrc/chol_diag_inv.cu kNb
+FUSED_NB = 64  # csrc/chol_fused.cu kNb
+FUSED_MAX_N = 320  # csrc/chol_fused.cu kMaxN
 
-__all__ = ["chol_diag_inv"]
+__all__ = ["FUSED_MAX_N", "FUSED_NB", "chol_diag_inv", "chol_factor",
+           "chol_solve"]
 
 
 def _raise_launch(lib, what: str, code: int) -> None:
@@ -70,3 +90,88 @@ def chol_diag_inv(d: torch.Tensor):
         _raise_launch(lib, "chol_diag_inv", code)
     LAUNCHES += 1
     return l_out, inv_out
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: must be torch.float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: must be {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _fused_n(fn: str, n: int) -> int:
+    """n_pad for a fused kernel's n, which must lie in 1..FUSED_MAX_N."""
+    if not 1 <= n <= FUSED_MAX_N:
+        raise ValueError(f"{fn}: the fused kernels take n in 1.."
+                         f"{FUSED_MAX_N}, got {n}")
+    return -(-n // FUSED_NB) * FUSED_NB
+
+
+def chol_factor(m: torch.Tensor):
+    """(B, n, n) float32 SPD matrices -> (L (B, n_pad, n_pad), the inverted
+    diagonal blocks (n_pad / 64, B, 64, 64)), both lower triangular. A lane
+    that is not SPD is NaN in that lane only. One launch on a CUDA tensor;
+    the twin on a CPU tensor."""
+    global FACTOR_LAUNCHES
+    dev = m.device
+    if m.dim() != 3 or m.shape[1] != m.shape[2]:
+        raise ValueError(f"chol_factor: m must be (B, n, n), got "
+                         f"{tuple(m.shape)}")
+    if dev.type == "cpu":
+        return chol_factor_ref(m.to(torch.float32), FUSED_NB)
+    if dev.type != "cuda":
+        raise ValueError(f"chol_factor: no implementation for {dev}")
+    bsz, n, _ = m.shape
+    n_pad = _fused_n("chol_factor", n)
+    _check("chol_factor: m", m, (bsz, n, n))
+    l = m.new_empty((bsz, n_pad, n_pad))
+    inv = m.new_empty((n_pad // FUSED_NB, bsz, FUSED_NB, FUSED_NB))
+    if bsz == 0:
+        return l, inv
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ldpc_chol_factor(m.data_ptr(), l.data_ptr(),
+                                    inv.data_ptr(), bsz, n, n_pad, stream)
+    if code != 0:
+        _raise_launch(lib, "chol_factor", code)
+    FACTOR_LAUNCHES += 1
+    FACTOR_SHAPE_LAUNCHES[bsz, n] += 1
+    return l, inv
+
+
+def chol_solve(l: torch.Tensor, inv_diag: torch.Tensor, r: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """Solve M x = r for each lane from :func:`chol_factor`'s results:
+    r (B, n) float32 -> x (B, n). One launch on a CUDA tensor; the twin on
+    a CPU tensor."""
+    global SOLVE_LAUNCHES
+    dev = r.device
+    if dev.type == "cpu":
+        return chol_solve_ref(l, inv_diag, r, n)
+    if dev.type != "cuda":
+        raise ValueError(f"chol_solve: no implementation for {dev}")
+    n_pad = _fused_n("chol_solve", n)
+    bsz = r.shape[0]
+    _check("chol_solve: r", r, (bsz, n))
+    _check("chol_solve: l", l, (bsz, n_pad, n_pad))
+    _check("chol_solve: inv_diag", inv_diag,
+           (n_pad // FUSED_NB, bsz, FUSED_NB, FUSED_NB))
+    if l.device != dev or inv_diag.device != dev:
+        raise ValueError("chol_solve: l, inv_diag and r must be on one "
+                         "device")
+    x = r.new_empty((bsz, n))
+    if bsz == 0:
+        return x
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ldpc_chol_solve(l.data_ptr(), inv_diag.data_ptr(),
+                                   r.data_ptr(), x.data_ptr(), bsz, n, n_pad,
+                                   stream)
+    if code != 0:
+        _raise_launch(lib, "chol_solve", code)
+    SOLVE_LAUNCHES += 1
+    return x

@@ -43,13 +43,16 @@ NODES = 0
 
 # every launch counter a solve's parts touch: (module, name); the int ones
 # count hand-written kernel launches, the Counters split them by row tier
+# (the matvecs) or by (lanes, n) (the fused factor)
 _COUNTERS = ((gemv_kernel, "GEMV_LAUNCHES"), (gemv_kernel, "GEMV_T_LAUNCHES"),
              (gemv_kernel, "NORMAL_LAUNCHES"), (chol_kernel, "LAUNCHES"),
+             (chol_kernel, "FACTOR_LAUNCHES"), (chol_kernel, "SOLVE_LAUNCHES"),
              (ipm_kernel, "STEP_LEN_LAUNCHES"),
              (ipm_kernel, "UPDATE_LAUNCHES"),
              (gemv_kernel, "GEMV_TIER_LAUNCHES"),
              (gemv_kernel, "GEMV_T_TIER_LAUNCHES"),
-             (gemv_kernel, "NORMAL_TIER_LAUNCHES"))
+             (gemv_kernel, "NORMAL_TIER_LAUNCHES"),
+             (chol_kernel, "FACTOR_SHAPE_LAUNCHES"))
 # cuGraphNodeType: CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
 _DEVICE_NODES = (0, 1, 2)
 

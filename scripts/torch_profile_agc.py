@@ -5,11 +5,12 @@ configuration) through ``run_experiment`` once to warm up (kernel build
 included), then once more under ``torch.profiler``, and prints: the wall
 time and device-busy time of the profiled run and the idle share; each of
 the path's kernels' share of device time (the GF(2) elimination, the two
-matvecs, the normal matrix, the Cholesky diagonal block), the cuBLAS
-products (the blocked Cholesky's panels and block solves, ``bmm`` glue) and
-the rest; the device time under each phase of a cut round (cut search,
-appends, Gaussian elimination, IPM solve), read from the spans the program
-opens while a profiler records; the host reads per batch
+matvecs, the normal matrix, the fused Cholesky factor and solve, and the
+blocked chain's diagonal block where n is past the fused kernels' limit),
+the cuBLAS products and the rest; the device time under each phase of a
+cut round (cut search, appends, Gaussian elimination, IPM solve), read
+from the spans the program opens while a profiler records; the host reads
+per batch
 (device-to-host copies, each of which waits for the stream); and the kernels
 ranked by device time. The Chrome trace goes to ``build/torch_agc_trace.json``
 (gitignored). A 128-lane batch makes about 360,000 launches, so the
@@ -41,7 +42,9 @@ SNR = -3.0
 BATCH = 128
 KERNELS = {"gf2_eliminate": "gf2_gauss_kernel", "gemv_fwd": "gemv_fwd_kernel",
            "gemv_tr": "gemv_tr_kernel", "normal_build": "normal_build_kernel",
-           "chol_diag_inv": "chol_diag_inv_kernel"}
+           "chol_diag_inv": "chol_diag_inv_kernel",
+           "chol_factor": "chol_factor_kernel",
+           "chol_solve": "chol_solve_kernel"}
 
 
 def _merge(spans):

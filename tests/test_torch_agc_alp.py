@@ -220,7 +220,9 @@ def test_agc_alp_on_card_kernels_vs_plain(cuda_device):
     lam = torch.from_numpy(llrs).to(cuda_device)
     counts = lambda: (gauss_kernel.LAUNCHES, gemv_kernel.GEMV_LAUNCHES,
                       gemv_kernel.GEMV_T_LAUNCHES,
-                      gemv_kernel.NORMAL_LAUNCHES, chol_kernel.LAUNCHES)
+                      gemv_kernel.NORMAL_LAUNCHES,
+                      chol_kernel.FACTOR_LAUNCHES,
+                      chol_kernel.SOLVE_LAUNCHES)
     before = counts()
     res = AGCALPDecoder(h, device=cuda_device).decode_batch(lam)
     assert all(a > b for a, b in zip(counts(), before))

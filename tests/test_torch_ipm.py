@@ -223,7 +223,8 @@ def cuda_device():
 def test_ipm_kernel_backends_on_card(cuda_device):
     """128 lanes at n = 280 on a strided row slice, as AGC-ALP solves:
     the kernel/blocked path against the plain xla/xla path on the card, and
-    every kernel launched."""
+    every kernel launched (the fused factor once and its solve twice a
+    Newton step; the blocked chain's diagonal kernel not at all)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(9)
     lanes = [_rand_cut_lp(rng, 280, 200, 384) for _ in range(128)]
@@ -233,11 +234,17 @@ def test_ipm_kernel_backends_on_card(cuda_device):
     a_buf[:, :384] = a
     a_t = a_buf[:, :384]
     before = (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES,
-              gemv_kernel.NORMAL_LAUNCHES, chol_kernel.LAUNCHES)
+              gemv_kernel.NORMAL_LAUNCHES, chol_kernel.FACTOR_LAUNCHES,
+              chol_kernel.SOLVE_LAUNCHES)
+    diag_before = chol_kernel.LAUNCHES
     xk, _, ek = ipm_box_lp(c, a_t, b, iters=40, tol=1e-5)
     after = (gemv_kernel.GEMV_LAUNCHES, gemv_kernel.GEMV_T_LAUNCHES,
-             gemv_kernel.NORMAL_LAUNCHES, chol_kernel.LAUNCHES)
+             gemv_kernel.NORMAL_LAUNCHES, chol_kernel.FACTOR_LAUNCHES,
+             chol_kernel.SOLVE_LAUNCHES)
     assert all(x > y for x, y in zip(after, before))
+    # n = 280 takes the fused factor and solve, not the blocked chain
+    assert chol_kernel.LAUNCHES == diag_before
+    assert after[4] - before[4] == 2 * (after[3] - before[3])
     xx, _, ex = ipm_box_lp(c, a_t, b, iters=40, tol=1e-5,
                            matvec_backend="xla", factor_backend="xla")
     ok, ox = (c * xk).sum(1), (c * xx).sum(1)
