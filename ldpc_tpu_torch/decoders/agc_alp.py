@@ -75,20 +75,13 @@ class AGCALPDecoder(_AdaptiveLPBase):
 
     def _capture_tiers(self, st: dict) -> None:
         """Capture every row tier's solve graphs at the stream's width, once
-        per width, with the arguments :meth:`_solve` gives each tier (the
-        eager loop has none to capture)."""
-        c = st["c"]
-        bsz = c.shape[0]
+        per width, with the arguments :meth:`_solve` gives each tier
+        (:meth:`_ipm_args`; the eager path has none to capture)."""
+        bsz = st["c"].shape[0]
         if bsz in self._captured_widths or self.lp_backend != "ipm":
             return
         self._captured_widths.add(bsz)
-        warm = self.ipm_warm
         for t in self._tiers + (self.capacity,):
-            ipm_capture(c, st["a"][:, :t], st["rhs"][:, :t],
-                        iters=self.ipm_iters, tol=self.ipm_tol,
-                        check_every=self.ipm_check_every, active=st["done"],
-                        matvec_backend=self.ipm_matvec_backend,
-                        factor_backend=self.ipm_factor_backend,
-                        graphs=self.ipm_graphs,
-                        x0=st["x"] if warm else None,
-                        y0=st["y"][:, :t] if warm else None)
+            args, kw = self._ipm_args(st["c"], st["a"], st["rhs"], st["x"],
+                                      st["y"], st["done"], t)
+            ipm_capture(*args, **kw)

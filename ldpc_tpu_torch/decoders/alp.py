@@ -299,18 +299,25 @@ class _AdaptiveLPBase(nn.Module):
             [self.capacity]
         return tiers[sum(r_max > t for t in tiers[:-1])]
 
+    def _ipm_args(self, c, a_buf, rhs_buf, x, y, act, t: int):
+        """(arguments, keywords) of the IPM solve on the first ``t`` rows:
+        the one place that :meth:`_solve` and AGC-ALP's captures of the
+        solve's graphs take them from, so that both give one solve shape."""
+        warm = {"x0": x, "y0": y[:, :t]} if self.ipm_warm else {}
+        return (c, a_buf[:, :t], rhs_buf[:, :t]), dict(
+            iters=self.ipm_iters, tol=self.ipm_tol,
+            check_every=self.ipm_check_every, active=act,
+            matvec_backend=self.ipm_matvec_backend,
+            factor_backend=self.ipm_factor_backend, graphs=self.ipm_graphs,
+            **warm)
+
     def _solve(self, c, a_buf, rhs_buf, x, y, act, t: int, n_act: int):
         """Solve min c.x s.t. a_buf[:, :t] x <= rhs_buf[:, :t], box, with the
         decoder's backend, for the ``n_act`` lanes of ``act``. Returns
         (x, y[:, :t], err)."""
         if self.lp_backend == "ipm":
-            warm = {"x0": x, "y0": y[:, :t]} if self.ipm_warm else {}
-            return ipm_box_lp(c, a_buf[:, :t], rhs_buf[:, :t],
-                              iters=self.ipm_iters, tol=self.ipm_tol,
-                              check_every=self.ipm_check_every, active=act,
-                              matvec_backend=self.ipm_matvec_backend,
-                              factor_backend=self.ipm_factor_backend,
-                              graphs=self.ipm_graphs, **warm)
+            args, kw = self._ipm_args(c, a_buf, rhs_buf, x, y, act, t)
+            return ipm_box_lp(*args, **kw)
         args = (c, a_buf[:, :t], rhs_buf[:, :t], x, y[:, :t],
                 self.lp_max_iters)
         kw = dict(tol=self.lp_tol, check_every=self.lp_iters, active=act,

@@ -95,6 +95,8 @@ def build(force: bool = False) -> str:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures set."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             build()

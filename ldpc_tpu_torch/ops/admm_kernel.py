@@ -5,12 +5,13 @@ It has no Pallas counterpart: in ``ldpc_tpu/decoders/admm.py`` XLA fuses the
 iteration (``iter_fn``, ``:249-262``) inside the decode's ``while_loop``
 (``:184-197``) and the stream's (``:351-365``). :func:`admm_iterate` picks by
 the device of ``q``: a CPU tensor goes to the plain twin
-:func:`.admm_ref.admm_iterate_ref`, a CUDA tensor to the kernel, anything
-else raises; nothing falls back. On CUDA it checks the state (dtypes,
-shapes, contiguity, device), takes the launch layout from
+:func:`.admm_ref.admm_iterate_ref`, a CUDA tensor to the kernel
+(:func:`._launch.on_cpu`). On CUDA it checks the state (dtypes, shapes,
+contiguity, device), takes the launch layout from
 :func:`admm_plan` (a tier by the tables' shape, which raises for one
 that fits no tier), packs the tables (:func:`pack_tables`, unless given
-packed) and launches once on the current stream without synchronising:
+packed) and launches once (:func:`._launch.launch`) on the current stream
+without synchronising:
 every pair runs to its own stop or to ``iters`` inside the launch, and the
 host reads nothing (the pairs' queue is a zeroed tensor of P counters).
 The kernel updates v, z, yl, done and it in place and the wrapper returns
@@ -26,9 +27,10 @@ import torch
 
 from .admm_ref import (CHECK_EVERY, WINDOW, admm_iterate_ref, lane_param,
                         window_front)
-from .gemv_kernel import _launch
+from ._launch import counter, expect, launch, on_cpu
 
 ITERATE_LAUNCHES = 0
+_COUNT = counter(__name__, "ITERATE_LAUNCHES")
 MAX_SMEM = 232448      # the H100's opt-in shared memory per block
 MAX_INDEX = 32766      # an index + 1 must fit an int16 code
 MAX_LEN = 511          # slots a variable in a register tier
@@ -317,20 +319,6 @@ def pack_tables(tables: dict) -> dict:
             "real": torch.stack([nv_real, nc_real], dim=1).to(torch.int32)}
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"admm_iterate: {name} is on {t.device}, not "
-                         f"{device}")
-    if t.dtype != dtype:
-        raise TypeError(f"admm_iterate: {name} must be {dtype}, got "
-                        f"{t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"admm_iterate: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"admm_iterate: {name} must be contiguous")
-
-
 def admm_iterate(q, v, z, yl, done, it, tables, alpha, mu, eps_stop: float,
                  max_iter: int, iters: int, sum2=None,
                  check_every: int = CHECK_EVERY):
@@ -340,14 +328,11 @@ def admm_iterate(q, v, z, yl, done, it, tables, alpha, mu, eps_stop: float,
     copy of :func:`pack_tables` (else it is packed here), alpha and mu are
     made (B,) float32, the state is updated in place and returned, and
     ``check_every`` is not used: the host reads nothing."""
-    global ITERATE_LAUNCHES
-    dev = q.device
-    if dev.type == "cpu":
+    if on_cpu("admm_iterate", q):
         return admm_iterate_ref(q, v, z, yl, done, it, tables, alpha, mu,
                                 eps_stop, max_iter, iters, sum2,
                                 check_every)
-    if dev.type != "cuda":
-        raise ValueError(f"admm_iterate: no implementation for {dev}")
+    dev = q.device
     if done.dim() != 2:
         raise ValueError(f"admm_iterate: done must be (B, P), got "
                          f"{tuple(done.shape)}")
@@ -375,17 +360,16 @@ def admm_iterate(q, v, z, yl, done, it, tables, alpha, mu, eps_stop: float,
             ("e", tables["e"], f32, (p_count, n_var))) + (
             () if sum2 is None else
             (("sum2", sum2, f32, (bsz, p_count)),)):
-        _check(name, t, dtype, shape, dev)
+        expect("admm_iterate", name, t, dtype, shape, dev)
     alpha_l = lane_param(alpha, bsz, dev).reshape(-1).contiguous()
     mu_l = lane_param(mu, bsz, dev).reshape(-1).contiguous()
     if bsz and int(iters) > 0:
         queue = torch.zeros(p_count, dtype=i32, device=dev)
-        _launch("admm_iterate", "ldpc_admm_iterate", q, v, z, yl, done, it,
-                tables["var_csr"], tables["var_info"], tables["var_pos"],
-                tables["con_code4"], tables["real"], tables["b"],
-                tables["e"], alpha_l, mu_l, 0 if sum2 is None else sum2,
-                queue, bsz, p_count, n_var, n_con, k, float(eps_stop),
-                int(max_iter), int(iters), plan["threads"],
-                plan["smem_bytes"], plan["lanes"])
-        ITERATE_LAUNCHES += 1
+        launch("admm_iterate", "ldpc_admm_iterate", dev, q, v, z, yl, done,
+               it, tables["var_csr"], tables["var_info"], tables["var_pos"],
+               tables["con_code4"], tables["real"], tables["b"], tables["e"],
+               alpha_l, mu_l, sum2, queue, bsz, p_count, n_var, n_con, k,
+               float(eps_stop), int(max_iter), int(iters), plan["threads"],
+               plan["smem_bytes"], plan["lanes"])
+        _COUNT()
     return v, z, yl, done, it

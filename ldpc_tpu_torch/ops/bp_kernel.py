@@ -1,10 +1,13 @@
 """Python wrapper of the fused BP decode kernel (``csrc/bp_decode.cu``).
 
 Replaces ``ldpc_tpu/ops/pallas/bp_kernel.py`` (``_kernel``). The wrapper
-checks its inputs, allocates the outputs, and launches on the current CUDA
-stream without synchronising. It takes CUDA tensors only: the plain PyTorch
-twin is :func:`ldpc_tpu_torch.ops.bp_ref.bp_decode_ref`, and
-``decoders.bp.BPDecoder`` picks between the two by the tensor's device.
+checks its inputs, allocates the outputs, and launches
+(:func:`._launch.launch`) on the current CUDA stream without synchronising.
+It takes CUDA tensors only and refuses a CPU tensor
+(:func:`._launch.cuda_only`) instead of running a twin: the kernel covers
+one variant of BP (sum-product with early exit), so the caller,
+``decoders.bp.BPDecoder``, picks by variant and device between it and the
+plain PyTorch twin :func:`ldpc_tpu_torch.ops.bp_ref.bp_decode_ref`.
 
 The kernel decodes one codeword per thread block, its threads set by the
 code's shape in the source (chosen from variant builds timed on the H100,
@@ -18,32 +21,16 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from ._launch import counter, cuda_only, expect, launch
 
 LAUNCHES = 0
+_COUNT = counter(__name__, "LAUNCHES")
 # csrc/bp_decode.cu kMaxDc (the sign parity is a 32-bit mask) and kMaxIndex
 # (16-bit table entries)
 _MAX_DC = 32
 _MAX_INDEX = 65535
 
 __all__ = ["bp_decode"]
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"bp_decode: {name} must be a CUDA tensor, got "
-                         f"{t.device}")
-    if t.device != device:
-        raise ValueError(f"bp_decode: {name} is on {t.device}, llr on "
-                         f"{device}")
-    if t.dtype != dtype:
-        raise TypeError(f"bp_decode: {name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"bp_decode: {name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"bp_decode: {name} must be contiguous")
 
 
 def bp_decode(llr: torch.Tensor, row_col: torch.Tensor,
@@ -54,11 +41,15 @@ def bp_decode(llr: torch.Tensor, row_col: torch.Tensor,
     (n, dv) int32 ``CodeGraph`` tables; all on one CUDA device. Returns
     ``(bits (B, n) uint8, success (B,) bool, iterations (B,) int32)``.
     """
-    global LAUNCHES
+    named = (("llr", llr, torch.float32), ("row_col", row_col, torch.int32),
+             ("col_from_row", col_from_row, torch.int32))
+    cuda_only("bp_decode", ((name, t) for name, t, _ in named))
     dev = llr.device
-    _check("llr", llr, torch.float32, 2, dev)
-    _check("row_col", row_col, torch.int32, 2, dev)
-    _check("col_from_row", col_from_row, torch.int32, 2, dev)
+    for name, t, dtype in named:
+        if t.dim() != 2:
+            raise ValueError(f"bp_decode: {name} must be 2-D, got shape "
+                             f"{tuple(t.shape)}")
+        expect("bp_decode", name, t, dtype, t.shape, dev)
     b, n = llr.shape
     m, dc = row_col.shape
     if col_from_row.shape[0] != n:
@@ -76,18 +67,8 @@ def bp_decode(llr: torch.Tensor, row_col: torch.Tensor,
     bits = torch.empty((b, n), dtype=torch.uint8, device=dev)
     success = torch.empty((b,), dtype=torch.bool, device=dev)
     iterations = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return bits, success, iterations
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ldpc_bp_decode(
-            llr.data_ptr(), row_col.data_ptr(), col_from_row.data_ptr(),
-            bits.data_ptr(), success.data_ptr(), iterations.data_ptr(),
-            b, n, m, dc, dv, int(max_iter), stream)
-    if err != 0:
-        msg = lib.ldpc_cuda_error_string(err).decode()
-        raise RuntimeError(f"bp_decode launch failed: CUDA error {err} "
-                           f"({msg})")
-    LAUNCHES += 1
+    if b:
+        launch("bp_decode", "ldpc_bp_decode", dev, llr, row_col, col_from_row,
+               bits, success, iterations, b, n, m, dc, dv, int(max_iter))
+        _COUNT()
     return bits, success, iterations

@@ -4,11 +4,10 @@
 
 Replaces ``ldpc_tpu/ops/pallas/chol_kernel.py`` (``_diag_inv_kernel``,
 called by ``_chol_diag_inv``). :func:`chol_diag_inv` picks by the device of
-``d``: a CPU tensor goes to the plain twin
-:func:`..ops.chol_ref.chol_diag_inv_ref`, a CUDA tensor to the kernel,
-anything else raises; nothing falls back. On CUDA the wrapper checks its
-input, allocates the outputs and launches on the current stream without
-synchronising.
+``d`` (:func:`._launch.on_cpu`): a CPU tensor goes to the plain twin
+:func:`..ops.chol_ref.chol_diag_inv_ref`, a CUDA tensor to the kernel. On
+CUDA the wrapper checks its input, allocates the outputs and launches
+(:func:`._launch.launch`) on the current stream without synchronising.
 
 The kernel runs one warp per lane, two lanes per block (a constant of the
 source, chosen from variant builds timed on the H100, ``PERF.md``), and
@@ -27,7 +26,8 @@ the inverted 64 x 64 diagonal blocks).
 ``LAUNCHES`` counts the diagonal kernel's launches, ``FACTOR_LAUNCHES`` and
 ``SOLVE_LAUNCHES`` the fused kernels', and ``FACTOR_SHAPE_LAUNCHES`` the
 fused factor's by (lanes, n), so a run can show that its main path went
-through the kernels (``ops/ipm_graph.py`` adds them at each graph replay).
+through the kernels (declared with :func:`._launch.counter`, so
+``ops/ipm_graph.py`` adds them at each graph replay).
 """
 from __future__ import annotations
 
@@ -35,13 +35,16 @@ from collections import Counter
 
 import torch
 
-from . import _build
+from ._launch import counter, expect, launch, on_cpu
 from .chol_ref import chol_diag_inv_ref, chol_factor_ref, chol_solve_ref
 
 LAUNCHES = 0
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 FACTOR_SHAPE_LAUNCHES: Counter = Counter()
+_DIAG = counter(__name__, "LAUNCHES")
+_FACTOR = counter(__name__, "FACTOR_LAUNCHES", "FACTOR_SHAPE_LAUNCHES")
+_SOLVE = counter(__name__, "SOLVE_LAUNCHES")
 _MAX_NB = 64  # csrc/chol_diag_inv.cu kNb
 FUSED_NB = 64  # csrc/chol_fused.cu kNb
 FUSED_MAX_N = 320  # csrc/chol_fused.cu kMaxN
@@ -50,55 +53,27 @@ __all__ = ["FUSED_MAX_N", "FUSED_NB", "chol_diag_inv", "chol_factor",
            "chol_solve"]
 
 
-def _raise_launch(lib, what: str, code: int) -> None:
-    msg = lib.ldpc_cuda_error_string(code).decode()
-    raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
-
-
 def chol_diag_inv(d: torch.Tensor):
     """(B, nb, nb) float32 SPD blocks -> (L, L^{-1}), both (B, nb, nb),
     lower triangular, zero above the diagonal. A lane that is not SPD is
     NaN in that lane only."""
-    global LAUNCHES
-    dev = d.device
-    if dev.type == "cpu":
+    if on_cpu("chol_diag_inv", d):
         return chol_diag_inv_ref(d)
-    if dev.type != "cuda":
-        raise ValueError(f"chol_diag_inv: no implementation for {dev}")
-    if d.dtype != torch.float32:
-        raise TypeError(f"chol_diag_inv: d must be torch.float32, got "
-                        f"{d.dtype}")
     if d.dim() != 3 or d.shape[1] != d.shape[2] or d.shape[1] < 1:
         raise ValueError(f"chol_diag_inv: d must be (B, nb, nb), got "
                          f"{tuple(d.shape)}")
-    if not d.is_contiguous():
-        raise ValueError("chol_diag_inv: d must be contiguous")
+    expect("chol_diag_inv", "d", d, torch.float32, d.shape, d.device)
     bsz, nb, _ = d.shape
     if nb > _MAX_NB:
         raise ValueError(f"chol_diag_inv: the kernel factors blocks of at "
                          f"most {_MAX_NB} x {_MAX_NB}, got {nb} x {nb}")
     l_out = torch.empty_like(d)
     inv_out = torch.empty_like(d)
-    if bsz == 0:
-        return l_out, inv_out
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ldpc_chol_diag_inv(d.data_ptr(), l_out.data_ptr(),
-                                      inv_out.data_ptr(), bsz, nb, stream)
-    if code != 0:
-        _raise_launch(lib, "chol_diag_inv", code)
-    LAUNCHES += 1
+    if bsz:
+        launch("chol_diag_inv", "ldpc_chol_diag_inv", d.device, d, l_out,
+               inv_out, bsz, nb)
+        _DIAG()
     return l_out, inv_out
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: must be torch.float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: must be {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _fused_n(fn: str, n: int) -> int:
@@ -114,31 +89,20 @@ def chol_factor(m: torch.Tensor):
     diagonal blocks (n_pad / 64, B, 64, 64)), both lower triangular. A lane
     that is not SPD is NaN in that lane only. One launch on a CUDA tensor;
     the twin on a CPU tensor."""
-    global FACTOR_LAUNCHES
-    dev = m.device
     if m.dim() != 3 or m.shape[1] != m.shape[2]:
         raise ValueError(f"chol_factor: m must be (B, n, n), got "
                          f"{tuple(m.shape)}")
-    if dev.type == "cpu":
+    if on_cpu("chol_factor", m):
         return chol_factor_ref(m.to(torch.float32), FUSED_NB)
-    if dev.type != "cuda":
-        raise ValueError(f"chol_factor: no implementation for {dev}")
     bsz, n, _ = m.shape
     n_pad = _fused_n("chol_factor", n)
-    _check("chol_factor: m", m, (bsz, n, n))
+    expect("chol_factor", "m", m, torch.float32, m.shape, m.device)
     l = m.new_empty((bsz, n_pad, n_pad))
     inv = m.new_empty((n_pad // FUSED_NB, bsz, FUSED_NB, FUSED_NB))
-    if bsz == 0:
-        return l, inv
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ldpc_chol_factor(m.data_ptr(), l.data_ptr(),
-                                    inv.data_ptr(), bsz, n, n_pad, stream)
-    if code != 0:
-        _raise_launch(lib, "chol_factor", code)
-    FACTOR_LAUNCHES += 1
-    FACTOR_SHAPE_LAUNCHES[bsz, n] += 1
+    if bsz:
+        launch("chol_factor", "ldpc_chol_factor", m.device, m, l, inv, bsz,
+               n, n_pad)
+        _FACTOR((bsz, n))
     return l, inv
 
 
@@ -147,31 +111,17 @@ def chol_solve(l: torch.Tensor, inv_diag: torch.Tensor, r: torch.Tensor,
     """Solve M x = r for each lane from :func:`chol_factor`'s results:
     r (B, n) float32 -> x (B, n). One launch on a CUDA tensor; the twin on
     a CPU tensor."""
-    global SOLVE_LAUNCHES
-    dev = r.device
-    if dev.type == "cpu":
+    if on_cpu("chol_solve", r):
         return chol_solve_ref(l, inv_diag, r, n)
-    if dev.type != "cuda":
-        raise ValueError(f"chol_solve: no implementation for {dev}")
     n_pad = _fused_n("chol_solve", n)
-    bsz = r.shape[0]
-    _check("chol_solve: r", r, (bsz, n))
-    _check("chol_solve: l", l, (bsz, n_pad, n_pad))
-    _check("chol_solve: inv_diag", inv_diag,
-           (n_pad // FUSED_NB, bsz, FUSED_NB, FUSED_NB))
-    if l.device != dev or inv_diag.device != dev:
-        raise ValueError("chol_solve: l, inv_diag and r must be on one "
-                         "device")
+    bsz, dev = r.shape[0], r.device
+    expect("chol_solve", "r", r, torch.float32, (bsz, n), dev)
+    expect("chol_solve", "l", l, torch.float32, (bsz, n_pad, n_pad), dev)
+    expect("chol_solve", "inv_diag", inv_diag, torch.float32,
+           (n_pad // FUSED_NB, bsz, FUSED_NB, FUSED_NB), dev)
     x = r.new_empty((bsz, n))
-    if bsz == 0:
-        return x
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ldpc_chol_solve(l.data_ptr(), inv_diag.data_ptr(),
-                                   r.data_ptr(), x.data_ptr(), bsz, n, n_pad,
-                                   stream)
-    if code != 0:
-        _raise_launch(lib, "chol_solve", code)
-    SOLVE_LAUNCHES += 1
+    if bsz:
+        launch("chol_solve", "ldpc_chol_solve", dev, l, inv_diag, r, x, bsz,
+               n, n_pad)
+        _SOLVE()
     return x

@@ -2,14 +2,15 @@
 
 Replaces ``ldpc_tpu/ops/pallas/gauss_kernel.py`` (``_kernel``, called by
 ``gf2_eliminate_pallas``). :func:`gf2_eliminate` picks by the device of
-``h_perm``: a CPU tensor goes to the plain twin
-:func:`..ops.gauss_ref.gf2_eliminate_ref`, a CUDA tensor to the kernel,
-anything else raises; nothing falls back. On CUDA the wrapper checks its
-inputs, takes the launch layout from :func:`gauss_plan` (which raises
-``ValueError`` for a shape no layout takes: there is no fallback to the
-twin for a large code, unlike the TPU's ``gauss_fits_vmem``), allocates the
-output and launches on the current stream without synchronising. The kernel
-recomputes the plan and refuses a launch whose plan differs from its own.
+``h_perm`` (:func:`._launch.on_cpu`): a CPU tensor goes to the plain twin
+:func:`..ops.gauss_ref.gf2_eliminate_ref`, a CUDA tensor to the kernel. On
+CUDA the wrapper checks its inputs, takes the launch layout from
+:func:`gauss_plan` (which raises ``ValueError`` for a shape no layout
+takes: there is no fallback to the twin for a large code, unlike the TPU's
+``gauss_fits_vmem``), allocates the output and launches
+(:func:`._launch.launch`) on the current stream without synchronising. The
+kernel recomputes the plan and refuses a launch whose plan differs from its
+own.
 
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
@@ -18,10 +19,11 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from ._launch import counter, expect, launch, on_cpu
 from .gauss_ref import gf2_eliminate_ref
 
 LAUNCHES = 0
+_COUNT = counter(__name__, "LAUNCHES")
 MAX_ROWS = 768          # 24 words of row bits per column, in registers
 WORD_BUCKETS = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 20, 24)
 
@@ -73,41 +75,19 @@ def gf2_eliminate(h_perm: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     column order; inactive lanes come back unreduced. h_perm (B, m, n)
     uint8, contiguous; active (B,) bool. Returns (B, m, n) uint8,
     bit-identical to ``gf2_eliminate_ordered`` on active lanes."""
-    global LAUNCHES
-    dev = h_perm.device
-    if dev.type == "cpu":
+    if on_cpu("gf2_eliminate", h_perm):
         return gf2_eliminate_ref(h_perm, active)
-    if dev.type != "cuda":
-        raise ValueError(f"gf2_eliminate: no implementation for {dev}")
-    if h_perm.dtype != torch.uint8:
-        raise TypeError(f"gf2_eliminate: h_perm must be torch.uint8, got "
-                        f"{h_perm.dtype}")
     if h_perm.dim() != 3 or min(h_perm.shape[1:]) < 1:
         raise ValueError(f"gf2_eliminate: h_perm must be (B, m, n), got "
                          f"{tuple(h_perm.shape)}")
-    if not h_perm.is_contiguous():
-        raise ValueError("gf2_eliminate: h_perm must be contiguous")
-    bsz, m, n = h_perm.shape
-    if (active.device != dev or active.dtype != torch.bool
-            or tuple(active.shape) != (bsz,) or not active.is_contiguous()):
-        raise ValueError(f"gf2_eliminate: active must be a contiguous "
-                         f"({bsz},) bool tensor on {dev}, got "
-                         f"{tuple(active.shape)} {active.dtype} on "
-                         f"{active.device}")
+    (bsz, m, n), dev = h_perm.shape, h_perm.device
+    expect("gf2_eliminate", "h_perm", h_perm, torch.uint8, h_perm.shape, dev)
+    expect("gf2_eliminate", "active", active, torch.bool, (bsz,), dev)
     plan = gauss_plan(m, n)
-    lib = _build.load()
     out = torch.empty_like(h_perm)
-    if bsz == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ldpc_gf2_gauss(
-            h_perm.data_ptr(), active.data_ptr(), out.data_ptr(), bsz, m, n,
-            plan["threads_per_lane"], plan["words"], plan["smem_bytes"],
-            stream)
-    if code != 0:
-        msg = lib.ldpc_cuda_error_string(code).decode()
-        raise RuntimeError(f"gf2_eliminate launch failed: CUDA error {code} "
-                           f"({msg})")
-    LAUNCHES += 1
+    if bsz:
+        launch("gf2_eliminate", "ldpc_gf2_gauss", dev, h_perm, active, out,
+               bsz, m, n, plan["threads_per_lane"], plan["words"],
+               plan["smem_bytes"])
+        _COUNT()
     return out

@@ -5,11 +5,12 @@ cut rows all three read.
 Replace ``ldpc_tpu/ops/pallas/gemv_kernel.py``: ``_fwd_kernel`` and
 ``_tr_kernel`` (called by ``batched_gemv`` and ``batched_gemv_t``),
 ``_normal_kernel`` (called by ``normal_build``) and ``prepare_gemv``
-(:func:`pack_rows`). Each wrapper picks by the device of ``a``: a CPU tensor
-goes to its plain twin in :mod:`.gemv_ref` on the unpacked copy, a CUDA
-tensor to the kernel, anything else raises; nothing falls back. A wrapper
-checks its inputs on either device, allocates the output and on CUDA
-launches on the current stream without synchronising.
+(:func:`pack_rows`). Each wrapper picks by the device of ``a``
+(:func:`._launch.on_cpu`): a CPU tensor goes to its plain twin in
+:mod:`.gemv_ref` on the unpacked copy, a CUDA tensor to the kernel. A
+wrapper checks its inputs on either device, allocates the output and on
+CUDA launches (:func:`._launch.launch`) on the current stream without
+synchronising.
 
 The kernels read the packed copy :func:`pack_rows` makes once per solve: a
 contiguous (B, T, n_pad) int8 tensor, n_pad = n rounded up to 16, pad
@@ -24,7 +25,7 @@ splits d into three bf16 planes that sum back to d exactly.
 ``GEMV_LAUNCHES``, ``GEMV_T_LAUNCHES`` and ``NORMAL_LAUNCHES`` count each
 kernel's launches, so a run can show that its main path went through them;
 ``GEMV_TIER_LAUNCHES``, ``GEMV_T_TIER_LAUNCHES`` and ``NORMAL_TIER_LAUNCHES``
-count them by row count T.
+count them by row count T (declared with :func:`._launch.counter`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from collections import Counter
 import torch
 
 from . import _build
+from ._launch import counter, expect, launch, on_cpu
 from .gemv_ref import PAD, gemv_ref, gemv_t_ref, normal_ref, unpack_rows
 
 GEMV_LAUNCHES = 0
@@ -41,6 +43,9 @@ NORMAL_LAUNCHES = 0
 GEMV_TIER_LAUNCHES: Counter = Counter()
 GEMV_T_TIER_LAUNCHES: Counter = Counter()
 NORMAL_TIER_LAUNCHES: Counter = Counter()
+_GEMV = counter(__name__, "GEMV_LAUNCHES", "GEMV_TIER_LAUNCHES")
+_GEMV_T = counter(__name__, "GEMV_T_LAUNCHES", "GEMV_T_TIER_LAUNCHES")
+_NORMAL = counter(__name__, "NORMAL_LAUNCHES", "NORMAL_TIER_LAUNCHES")
 
 __all__ = ["batched_gemv", "batched_gemv_t", "normal_build", "pack_rows",
            "reset_tier_counts"]
@@ -113,66 +118,30 @@ def _check_a8(fn: str, a8: torch.Tensor, n: int) -> tuple[int, int, int]:
     return bsz, t, n_pad
 
 
-def _check_vec(fn: str, name: str, v: torch.Tensor, shape: tuple,
-               device: torch.device) -> None:
-    if v.device != device:
-        raise ValueError(f"{fn}: {name} is on {v.device}, a on {device}")
-    if v.dtype != torch.float32:
-        raise TypeError(f"{fn}: {name} must be torch.float32, got {v.dtype}")
-    if tuple(v.shape) != shape:
-        raise ValueError(f"{fn}: {name} must have shape {shape}, got "
-                         f"{tuple(v.shape)}")
-    if not v.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be contiguous")
-
-
-def _device_or_raise(fn: str, a: torch.Tensor) -> bool:
-    """True for a CPU tensor (use the twin); raises off CPU and CUDA."""
-    if a.device.type == "cpu":
-        return True
-    if a.device.type != "cuda":
-        raise ValueError(f"{fn}: no implementation for {a.device}")
-    return False
-
-
-def _launch(fn: str, entry, *args) -> None:
-    lib = _build.load()
-    dev = args[0].device
-    ptrs = [v.data_ptr() if isinstance(v, torch.Tensor) else v for v in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(*ptrs, stream)
-    if code != 0:
-        msg = lib.ldpc_cuda_error_string(code).decode()
-        raise RuntimeError(f"{fn} launch failed: CUDA error {code} ({msg})")
-
-
 def batched_gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A x per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`,
     x (B, n) float32 -> (B, T) float32."""
-    global GEMV_LAUNCHES
-    on_cpu = _device_or_raise("batched_gemv", a)
+    cpu = on_cpu("batched_gemv", a)
     n = x.shape[-1]
     bsz, t, n_pad = _check_a8("batched_gemv", a, n)
-    _check_vec("batched_gemv", "x", x, (bsz, n), a.device)
-    if on_cpu:
+    expect("batched_gemv", "x", x, torch.float32, (bsz, n), a.device)
+    if cpu:
         return gemv_ref(unpack_rows(a, n), x)
     out = torch.empty((bsz, t), dtype=torch.float32, device=a.device)
     if bsz:
-        _launch("batched_gemv", "ldpc_gemv_fwd", a, x, out, bsz, t, n, n_pad)
-        GEMV_LAUNCHES += 1
-        GEMV_TIER_LAUNCHES[t] += 1
+        launch("batched_gemv", "ldpc_gemv_fwd", a.device, a, x, out, bsz, t,
+               n, n_pad)
+        _GEMV(t)
     return out
 
 
 def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
     """A^T y per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`
     of a slice with ``n`` columns, y (B, T) float32 -> (B, n) float32."""
-    global GEMV_T_LAUNCHES
-    on_cpu = _device_or_raise("batched_gemv_t", a)
+    cpu = on_cpu("batched_gemv_t", a)
     bsz, t, n_pad = _check_a8("batched_gemv_t", a, n)
-    _check_vec("batched_gemv_t", "y", y, (bsz, t), a.device)
-    if on_cpu:
+    expect("batched_gemv_t", "y", y, torch.float32, (bsz, t), a.device)
+    if cpu:
         return gemv_t_ref(unpack_rows(a, n), y)
     out = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
     if bsz:
@@ -183,10 +152,9 @@ def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
         # the kernel splits a lane into at most twice ceil(t / rows) chunks
         part = torch.empty((bsz, 2 * -(-t // rows), n), dtype=torch.float32,
                            device=a.device)
-        _launch("batched_gemv_t", "ldpc_gemv_tr", a, y, part, out,
-                _run_counts(a.device, bsz), bsz, t, n, n_pad)
-        GEMV_T_LAUNCHES += 1
-        GEMV_T_TIER_LAUNCHES[t] += 1
+        launch("batched_gemv_t", "ldpc_gemv_tr", a.device, a, y, part, out,
+               _run_counts(a.device, bsz), bsz, t, n, n_pad)
+        _GEMV_T(t)
     return out
 
 
@@ -196,17 +164,15 @@ def normal_build(a: torch.Tensor, d: torch.Tensor, dxx: torch.Tensor,
     int8 copy from :func:`pack_rows` of a slice with ``n`` columns, d (B, T)
     and dxx (B, n) float32 -> (B, n, n) float32, both triangles written and
     exactly symmetric."""
-    global NORMAL_LAUNCHES
-    on_cpu = _device_or_raise("normal_build", a)
+    cpu = on_cpu("normal_build", a)
     bsz, t, n_pad = _check_a8("normal_build", a, n)
-    _check_vec("normal_build", "d", d, (bsz, t), a.device)
-    _check_vec("normal_build", "dxx", dxx, (bsz, n), a.device)
-    if on_cpu:
+    expect("normal_build", "d", d, torch.float32, (bsz, t), a.device)
+    expect("normal_build", "dxx", dxx, torch.float32, (bsz, n), a.device)
+    if cpu:
         return normal_ref(unpack_rows(a, n), d, dxx, delta)
     out = torch.empty((bsz, n, n), dtype=torch.float32, device=a.device)
     if bsz:
-        _launch("normal_build", "ldpc_normal_build", a, d, dxx, out, bsz, t,
-                n, n_pad, float(delta))
-        NORMAL_LAUNCHES += 1
-        NORMAL_TIER_LAUNCHES[t] += 1
+        launch("normal_build", "ldpc_normal_build", a.device, a, d, dxx, out,
+               bsz, t, n, n_pad, float(delta))
+        _NORMAL(t)
     return out

@@ -14,10 +14,11 @@ and every tensor a part allocates is dead when it ends, so the pool holds
 scratch only. A capture that fails raises with its cause.
 
 The hand-written kernels' wrappers count a launch on the host, where they
-launch, so a replay would count nothing. :func:`capture` records each
-graph's per-counter delta during its capture (the warm-up and the captures
-themselves are left out) and :func:`replay` adds it, so the counters after a
-graph solve equal the eager solve's. Beside them this module counts
+launch, so a replay would count nothing. :func:`capture` records what each
+graph's capture added to every counter a wrapper declared
+(:func:`._launch.counter`; the warm-up and the captures themselves are left
+out) and :func:`replay` adds it, so the counters after a graph solve equal
+the eager solve's, a new wrapper's included. Beside them this module counts
 ``REPLAYS``, ``CALLS`` (the hand-written kernel launches the replays made)
 and ``NODES`` (the device operations the replays ran: the kernel, copy and
 memset nodes of each graph, read from libcuda after capture), so a
@@ -26,12 +27,11 @@ caller can tell the host's launches from the device's.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from dataclasses import dataclass
 
 import torch
 
-from . import chol_kernel, gemv_kernel, ipm_kernel
+from . import _launch
 
 __all__ = ["CAPTURES", "CALLS", "NODES", "REPLAYS", "Captured", "capture",
            "replay"]
@@ -41,46 +41,12 @@ REPLAYS = 0
 CALLS = 0
 NODES = 0
 
-# every launch counter a solve's parts touch: (module, name); the int ones
-# count hand-written kernel launches, the Counters split them by row tier
-# (the matvecs) or by (lanes, n) (the fused factor)
-_COUNTERS = ((gemv_kernel, "GEMV_LAUNCHES"), (gemv_kernel, "GEMV_T_LAUNCHES"),
-             (gemv_kernel, "NORMAL_LAUNCHES"), (chol_kernel, "LAUNCHES"),
-             (chol_kernel, "FACTOR_LAUNCHES"), (chol_kernel, "SOLVE_LAUNCHES"),
-             (ipm_kernel, "STEP_LEN_LAUNCHES"),
-             (ipm_kernel, "UPDATE_LAUNCHES"),
-             (gemv_kernel, "GEMV_TIER_LAUNCHES"),
-             (gemv_kernel, "GEMV_T_TIER_LAUNCHES"),
-             (gemv_kernel, "NORMAL_TIER_LAUNCHES"),
-             (chol_kernel, "FACTOR_SHAPE_LAUNCHES"))
 # cuGraphNodeType: CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
 _DEVICE_NODES = (0, 1, 2)
 
 _pools: dict[int, tuple] = {}
 _streams: dict[int, torch.cuda.Stream] = {}
 _libcuda = None
-
-
-def _snapshot() -> list:
-    return [Counter(v) if isinstance(v, Counter) else v
-            for v in (getattr(m, name) for m, name in _COUNTERS)]
-
-
-def _restore(snap: list) -> None:
-    for (mod, name), v in zip(_COUNTERS, snap):
-        if isinstance(v, Counter):
-            getattr(mod, name).clear()
-            getattr(mod, name).update(v)
-        else:
-            setattr(mod, name, v)
-
-
-def _add(delta: list) -> None:
-    for (mod, name), d in zip(_COUNTERS, delta):
-        if isinstance(d, Counter):
-            getattr(mod, name).update(d)
-        else:
-            setattr(mod, name, getattr(mod, name) + d)
 
 
 def _device_nodes(raw: int) -> int:
@@ -114,9 +80,10 @@ def _device_nodes(raw: int) -> int:
 
 @dataclass
 class Captured:
-    """One captured part: its graph, the counters' delta that a replay
-    adds, the hand-written launches in it, its device operations and the
-    scratch it must hold alive."""
+    """One captured part: its graph, what a replay adds to the counters
+    (:func:`._launch.since`: (counter, launches, the Counter's split)),
+    the hand-written launches in it, its device operations and the scratch
+    it must hold alive."""
     graph: torch.cuda.CUDAGraph
     delta: list
     calls: int
@@ -139,7 +106,7 @@ def capture(parts: dict, device: torch.device, keep=()) -> dict:
             _pools[idx] = torch.cuda.graph_pool_handle()
             _streams[idx] = torch.cuda.Stream(idx)
     side, pool = _streams[idx], _pools[idx]
-    saved = _snapshot()
+    saved = _launch.snapshot()
     out = {}
     try:
         current = torch.cuda.current_stream(idx)
@@ -150,13 +117,12 @@ def capture(parts: dict, device: torch.device, keep=()) -> dict:
                 fn()
         current.wait_stream(side)
         for name, fn in parts.items():
-            _restore(saved)
+            _launch.restore(saved)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph, pool=pool, stream=side):
                 fn()
-            after = _snapshot()
-            delta = [a - b for a, b in zip(after, saved)]
-            calls = sum(d for d in delta if not isinstance(d, Counter))
+            delta = _launch.since(saved)
+            calls = sum(n for _, n, _ in delta)
             nodes = _device_nodes(graph.raw_cuda_graph())
             graph.instantiate()
             out[name] = Captured(graph, delta, calls, nodes, held)
@@ -164,7 +130,7 @@ def capture(parts: dict, device: torch.device, keep=()) -> dict:
         raise RuntimeError(f"ipm_box_lp: capturing the solve's CUDA graphs "
                            f"failed: {exc}") from exc
     finally:
-        _restore(saved)
+        _launch.restore(saved)
     CAPTURES += len(out)
     return out
 
@@ -174,7 +140,8 @@ def replay(part: Captured) -> None:
     launches."""
     global REPLAYS, CALLS, NODES
     part.graph.replay()
-    _add(part.delta)
+    for count, n, by in part.delta:
+        count.add(n, by)
     REPLAYS += 1
     CALLS += part.calls
     NODES += part.nodes

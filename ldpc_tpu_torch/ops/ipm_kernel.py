@@ -3,11 +3,12 @@
 
 They have no Pallas counterpart: in ``ldpc_tpu/ops/ipm_solver.py`` XLA fuses
 this elementwise work (``:222-267``). Each wrapper picks by the device of its
-first tensor: a CPU tensor goes to its plain twin in :mod:`.ipm_ref`, a CUDA
-tensor to the kernel, anything else raises; nothing falls back. On CUDA a
-wrapper checks its inputs (float32, contiguous, the shapes of one solve),
-takes the launch layout of :func:`ipm_step_plan` and launches on the current
-stream without synchronising.
+first tensor (:func:`._launch.on_cpu`): a CPU tensor goes to its plain twin
+in :mod:`.ipm_ref`, a CUDA tensor to the kernel. On CUDA a wrapper checks
+its inputs (float32, contiguous, the shapes of one solve), takes the launch
+layout of :func:`ipm_step_plan` and launches (:func:`._launch.launch`) on
+the current stream without synchronising (a test or a timer that launches
+by a plan of its own calls ``launch`` with the entry point's arguments).
 
 ``ipm_update`` on CUDA writes the new state into the state's own tensors
 and returns them; its twin returns new tensors. Callers use the returned
@@ -20,12 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
-from .gemv_kernel import _launch
+from ._launch import counter, expect, launch, on_cpu
 from .ipm_ref import FLOOR, FRAC, ipm_step_len_ref, ipm_update_ref
 
 STEP_LEN_LAUNCHES = 0
 UPDATE_LAUNCHES = 0
+_STEP_LEN = counter(__name__, "STEP_LEN_LAUNCHES")
+_UPDATE = counter(__name__, "UPDATE_LAUNCHES")
 
 MAX_THREADS = 1024   # a block
 PER_THREAD = 4       # floats of each of a lane's arrays a thread holds a pass
@@ -76,67 +78,21 @@ def _aligned(tensors) -> bool:
     return all(v.data_ptr() % 16 == 0 for v in tensors)
 
 
-def _layout(plan: dict) -> tuple:
-    return plan["vec"], plan["threads"]
-
-
-def _on_cpu(fn: str, v: torch.Tensor) -> bool:
-    if v.device.type == "cpu":
-        return True
-    if v.device.type != "cuda":
-        raise ValueError(f"{fn}: no implementation for {v.device}")
-    return False
-
-
 def _check(fn: str, named, bsz: int, t: int, n: int,
            device: torch.device) -> None:
     """Each (name, tensor, "T" or "n") must be a contiguous float32 (B, T)
     or (B, n) tensor on ``device``."""
     for name, v, width in named:
-        shape = (bsz, t if width == "T" else n)
-        if v.device != device:
-            raise ValueError(f"{fn}: {name} is on {v.device}, not {device}")
-        if v.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be torch.float32, got "
-                            f"{v.dtype}")
-        if tuple(v.shape) != shape:
-            raise ValueError(f"{fn}: {name} must have shape {shape}, got "
-                             f"{tuple(v.shape)}")
-        if not v.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-
-
-def _step_len_launch(arrays, ap, ad, frac: float, plan: dict) -> None:
-    """One launch of the step-length kernel on checked CUDA ``arrays``
-    (s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu) into ``ap``, ``ad`` by
-    ``plan``."""
-    (bsz, t), n = arrays[0].shape, arrays[2].shape[1]
-    _launch("ipm_step_len", "ldpc_ipm_step_len", *arrays, ap, ad, bsz, t, n,
-            float(frac), *_layout(plan))
-
-
-def _update_launch(state, dirs, ap, ad, plan: dict) -> None:
-    """One launch of the update kernel on checked CUDA ``state`` and
-    ``dirs`` by ``plan``, in place."""
-    (bsz, t), n = state[2].shape, state[0].shape[1]
-    # the floor and the top of the box as float32, as torch converts
-    # clamp's scalar bounds (1.0 - 1e-12 rounds to 1.0f)
-    _launch("ipm_update", "ldpc_ipm_update", *state, *dirs, ap, ad, bsz, t,
-            n, FLOOR, 1.0 - FLOOR, *_layout(plan))
+        expect(fn, name, v, torch.float32, (bsz, t if width == "T" else n),
+               device)
 
 
 def empty_kernel(plan: dict, device: torch.device) -> None:
     """An empty kernel of ``plan``'s grid and blocks on the current stream
     of ``device``: the launch floor that the two kernels are timed against.
     Needs a card."""
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.ldpc_ipm_empty(plan["blocks"], plan["threads"], stream)
-    if code != 0:
-        msg = lib.ldpc_cuda_error_string(code).decode()
-        raise RuntimeError(f"empty_kernel launch failed: CUDA error {code} "
-                           f"({msg})")
+    launch("empty_kernel", "ldpc_ipm_empty", device, plan["blocks"],
+           plan["threads"])
 
 
 def ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
@@ -144,8 +100,7 @@ def ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
     """(ap, ad), each (B,): the primal step length keeping s, x and w
     interior along (ds, dx, -dx), the dual one keeping y, zl, zu interior
     along (dy, dzl, dzu); s, ds, y, dy (B, T), the rest (B, n)."""
-    global STEP_LEN_LAUNCHES
-    if _on_cpu("ipm_step_len", s):
+    if on_cpu("ipm_step_len", s):
         return ipm_step_len_ref(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
                                 frac)
     if s.dim() != 2 or x.dim() != 2:
@@ -162,8 +117,9 @@ def ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu,
     ap = torch.empty((bsz,), dtype=torch.float32, device=s.device)
     ad = torch.empty_like(ap)
     if bsz:
-        _step_len_launch(arrays, ap, ad, frac, plan)
-        STEP_LEN_LAUNCHES += 1
+        launch("ipm_step_len", "ldpc_ipm_step_len", s.device, *arrays, ap, ad,
+               bsz, t, n, float(frac), plan["vec"], plan["threads"])
+        _STEP_LEN()
     return ap, ad
 
 
@@ -173,10 +129,9 @@ def ipm_update(state, dirs, ap, ad):
     (B,); a lane whose dx or dy is not finite keeps its iterate, and every
     lane is clamped strictly interior with w = 1 - x. On CUDA the state's
     tensors are updated in place and returned."""
-    global UPDATE_LAUNCHES
     x, w, s, y, zl, zu, ax = state
     dx, dy, ds, dzl, dzu, adx = dirs
-    if _on_cpu("ipm_update", x):
+    if on_cpu("ipm_update", x):
         return ipm_update_ref(state, dirs, ap, ad)
     if s.dim() != 2 or x.dim() != 2:
         raise ValueError(f"ipm_update: s and x must be 2-D, got "
@@ -187,13 +142,14 @@ def ipm_update(state, dirs, ap, ad):
         ("zl", zl, "n"), ("zu", zu, "n"), ("ax", ax, "T"), ("dx", dx, "n"),
         ("dy", dy, "T"), ("ds", ds, "T"), ("dzl", dzl, "n"),
         ("dzu", dzu, "n"), ("adx", adx, "T")), bsz, t, n, x.device)
-    for name, v in (("ap", ap), ("ad", ad)):
-        if (v.device != x.device or v.dtype != torch.float32
-                or tuple(v.shape) != (bsz,) or not v.is_contiguous()):
-            raise ValueError(f"ipm_update: {name} must be a contiguous "
-                             f"float32 ({bsz},) tensor on {x.device}")
+    expect("ipm_update", "ap", ap, torch.float32, (bsz,), x.device)
+    expect("ipm_update", "ad", ad, torch.float32, (bsz,), x.device)
     if bsz:
-        _update_launch(state, dirs, ap, ad,
-                       ipm_step_plan(bsz, t, n, _aligned((*state, *dirs))))
-        UPDATE_LAUNCHES += 1
+        plan = ipm_step_plan(bsz, t, n, _aligned((*state, *dirs)))
+        # the floor and the top of the box as float32, as torch converts
+        # clamp's scalar bounds (1.0 - 1e-12 rounds to 1.0f)
+        launch("ipm_update", "ldpc_ipm_update", x.device, *state, *dirs, ap,
+               ad, bsz, t, n, FLOOR, 1.0 - FLOOR, plan["vec"],
+               plan["threads"])
+        _UPDATE()
     return state

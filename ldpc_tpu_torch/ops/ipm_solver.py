@@ -49,19 +49,23 @@ most 8 per solve. A chunk that does not step leaves the state
 unchanged, so the flag stays false and leaving the loop at the first false
 one is exact.
 
+A solve runs in four parts over buffers of its shape (device, lanes, rows,
+columns, warm start and mask given, backends and settings; the solve's
+inputs are copied in first): the start, a chunk boundary (the lanes'
+errors, the stall bookkeeping and the flag), a chunk of ``check_every``
+Newton steps and the certificate. One loop (``_Solve.run``) drives them,
+with the host reads between them, whether the parts run eager or as CUDA
+graphs, so the two give the same bits, host reads and counts.
+
 ``graphs`` (None: on a CUDA tensor) runs the solve as JAX runs it, one
-device program per part with no per-op dispatch: the start, a chunk
-boundary (the lanes' errors, the stall bookkeeping and the flag), a chunk
-of ``check_every`` Newton steps and the certificate are each captured once
-per solve shape (device, lanes, rows, columns, warm start and mask given,
-backends and settings) as a CUDA graph over static buffers
-(:mod:`.ipm_graph`; one per row tier of AGC-ALP), and replayed after the
-solve's inputs are copied in. The replays run the eager loop's kernels in
-its order, so the two give the same bits, and the launch counters the same
-counts. ``graphs=False`` runs the eager loop on either device, and so does
-``graphs=None`` with ``factor_backend="xla"``: its ``cholesky_solve`` runs
-MAGMA on CUDA, which allocates inside the call and cannot be captured.
-``graphs=True`` on a CPU tensor or with that backend raises.
+device program per part with no per-op dispatch: each part is captured once
+per solve shape as a CUDA graph over the shape's buffers
+(:mod:`.ipm_graph`; one shape per row tier of AGC-ALP, kept for the life of
+the process) and replayed. ``graphs=False`` calls the parts eagerly, on
+either device, over buffers made for the call, and so does ``graphs=None``
+with ``factor_backend="xla"``: its ``cholesky_solve`` runs MAGMA on CUDA,
+which allocates inside the call and cannot be captured. ``graphs=True`` on
+a CPU tensor or with that backend raises.
 
 What the parts run must be capturable: no host read, and no
 ``torch.where`` with a Python number (it copies the number to the card);
@@ -71,13 +75,13 @@ What the parts run must be capturable: no host read, and no
 host read of the chunk loop's flag, on either path and at no host read of
 its own; while a profiler records, the spans ``lp.capture`` (a solve
 shape's first call, which captures its graphs) and ``lp.copy_in`` (the
-inputs copied into the static buffers before the replays) name those
-steps.
+inputs copied into its buffers before the replays) name those steps.
 """
 from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import torch
@@ -130,7 +134,7 @@ def _const(v: float, dev: torch.device) -> torch.Tensor:
 
 
 def _store(dsts, srcs) -> None:
-    """Copy each result into its static buffer (an in-place kernel's result
+    """Copy each result into its buffer (an in-place kernel's result
     already is it)."""
     for dst, src in zip(dsts, srcs):
         if src is not dst:
@@ -319,18 +323,21 @@ def _first_read(go, guard) -> bool:
     return go
 
 
-class _GraphSolve:
-    """One solve shape's static buffers and captured parts: the inputs
-    copied in before each solve (objective, rhs, warm start, mask, the
-    packed or float32 rows), the constants, the iterate, the stall
-    bookkeeping, the flag and the outputs."""
+class _Solve:
+    """One solve shape's buffers and its four parts (start, boundary,
+    chunk, finish): the inputs copied in before each solve (objective, rhs,
+    warm start, mask, the packed or float32 rows), the constants, the
+    iterate, the stall bookkeeping, the flag and the outputs. With
+    ``graphs`` the parts are captured at first use and replayed, else
+    called."""
 
     def __init__(self, dev, bsz, r_cap, n, kernel, blocked, warm_x, warm_y,
-                 masked, delta, check_every, tol, stall_ratio, warm_shift):
+                 masked, delta, check_every, tol, stall_ratio, warm_shift,
+                 graphs):
         def buf(*shape, dtype=_F32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self.n, self.kernel = n, kernel
+        self.n, self.kernel, self.graphs = n, kernel, graphs
         self.check_every, self.warm_shift = check_every, warm_shift
         self.c, self.b = buf(bsz, n), buf(bsz, r_cap)
         self.x0 = buf(bsz, n) if warm_x else None
@@ -351,9 +358,9 @@ class _GraphSolve:
         self.stall_cnt = buf(bsz, dtype=torch.int32)
         self.go = buf(dtype=torch.bool)
         self.out = (buf(bsz, n), buf(bsz, r_cap), buf(bsz))
-        self.parts = None
+        self.replays = None
 
-    # the captured parts: each reads and writes the static buffers only
+    # the parts: each reads and writes the solve's buffers only
     def _start(self):
         lp = self.lp
         _store((lp.cscale, lp.cs, lp.row_on, lp.be),
@@ -379,58 +386,72 @@ class _GraphSolve:
 
     def capture(self) -> bool:
         """Capture the parts, once; returns whether it did now."""
-        if self.parts is not None:
+        if self.replays is not None:
             return False
         bsz, dev = self.c.shape[0], self.c.device
         keep = ((lambda: gemv_kernel._run_counts(dev, bsz)),) \
             if self.kernel else ()
         with span("lp.capture"):
-            self.parts = ipm_graph.capture(
+            parts = ipm_graph.capture(
                 {"start": self._start, "boundary": self._boundary,
                  "chunk": self._chunk, "finish": self._finish}, dev, keep)
+        self.replays = tuple(partial(ipm_graph.replay, parts[name]) for name
+                             in ("start", "boundary", "chunk", "finish"))
         return True
 
+    def _copy_in(self, c, a, b, x0, y0, active):
+        """Copy a solve's inputs into the buffers; returns the packed
+        copy's guard (None for the float32 rows)."""
+        for dst, src in ((self.c, c), (self.b, b), (self.x0, x0),
+                         (self.y0, y0), (self.active, active)):
+            if dst is not None:
+                dst.copy_(src)
+        if not self.kernel:
+            self.rows.copy_(a)
+            return None
+        return pack_rows(a.to(_F32), out=self.rows)[1]
+
     def run(self, c, a, b, x0, y0, active, iters: int):
-        guard = None
-        with span("lp.copy_in"):
-            for dst, src in ((self.c, c), (self.b, b), (self.x0, x0),
-                             (self.y0, y0), (self.active, active)):
-                if dst is not None:
-                    dst.copy_(src)
-            if self.kernel:
-                _, guard = pack_rows(a, out=self.rows)
-            else:
-                self.rows.copy_(a)
-        self.capture()
-        parts = self.parts
-        ipm_graph.replay(parts["start"])
-        ipm_graph.replay(parts["boundary"])
+        """One solve: copy in, then start, boundary and the first read (with
+        the packed copy's guard), chunks with a boundary and a read between
+        two, and the certificate."""
+        if self.graphs:
+            with span("lp.copy_in"):
+                guard = self._copy_in(c, a, b, x0, y0, active)
+            self.capture()
+            start, boundary, chunk, finish = self.replays
+        else:
+            guard = self._copy_in(c, a, b, x0, y0, active)
+            start, boundary, chunk, finish = (self._start, self._boundary,
+                                              self._chunk, self._finish)
+        start()
+        boundary()
         go = (_first_read(self.go, guard) if guard is not None
               else _poll(self.go))
         n_chunks = -(-iters // self.check_every)
         for k in range(n_chunks):
             if not go:
                 break
-            ipm_graph.replay(parts["chunk"])
+            chunk()
             COUNTS["chunks"] += 1
             if k + 1 == n_chunks:
                 break
-            ipm_graph.replay(parts["boundary"])
+            boundary()
             go = _poll(self.go)
-        ipm_graph.replay(parts["finish"])
-        return tuple(v.clone() for v in self.out)
+        finish()
+        return tuple(v.clone() for v in self.out) if self.graphs else self.out
 
 
 # one per solve shape, for the life of the process (AGC-ALP: one per row
 # tier and batch width)
-_graph_solves: dict[tuple, _GraphSolve] = {}
+_graph_solves: dict[tuple, _Solve] = {}
 
 
 def _plan(fn, a_rows, iters, tol, active, delta, check_every, warm_x,
           warm_y, warm_shift, factor_backend, stall_ratio, matvec_backend,
-          graphs):
-    """(the solve shape's :class:`_GraphSolve` or None for the eager loop,
-    kernel matvecs, blocked factor), the arguments checked."""
+          graphs) -> tuple[tuple, bool]:
+    """(the solve shape: :class:`_Solve`'s arguments, whether it runs as
+    CUDA graphs), the arguments checked."""
     dev = a_rows.device
     on_cuda = dev.type == "cuda"
     if matvec_backend not in MATVEC_BACKENDS:
@@ -454,15 +475,19 @@ def _plan(fn, a_rows, iters, tol, active, delta, check_every, warm_x,
                          f"'blocked': the plain factor's cholesky_solve "
                          f"(MAGMA on CUDA) cannot be captured")
     bsz, r_cap, n = a_rows.shape
-    if not ((on_cuda and blocked if graphs is None else graphs) and bsz):
-        return None, kernel, blocked
-    key = (dev.index, bsz, r_cap, n, kernel, blocked, warm_x, warm_y,
-           active is not None, delta, check_every, tol, stall_ratio,
-           warm_shift)
-    solve = _graph_solves.get(key)
+    shape = (dev, bsz, r_cap, n, kernel, blocked, warm_x, warm_y,
+             active is not None, delta, check_every, tol, stall_ratio,
+             warm_shift)
+    return shape, bool((on_cuda and blocked if graphs is None else graphs)
+                       and bsz)
+
+
+def _graph_solve(shape: tuple) -> _Solve:
+    """The process's solve of ``shape`` as CUDA graphs."""
+    solve = _graph_solves.get(shape)
     if solve is None:
-        solve = _graph_solves[key] = _GraphSolve(dev, *key[1:])
-    return solve, kernel, blocked
+        solve = _graph_solves[shape] = _Solve(*shape, graphs=True)
+    return solve
 
 
 @spanned("lp.solve")
@@ -493,42 +518,13 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     err (B,) = max(primal violation, relative duality gap)).
     """
     require_full_f32("ipm_box_lp")
-    solve, kernel, blocked = _plan(
+    shape, graphs = _plan(
         "ipm_box_lp", a_rows, iters, tol, active, delta, check_every,
         x0 is not None, y0 is not None, warm_shift, factor_backend,
         stall_ratio, matvec_backend, graphs)
     COUNTS["solves"] += 1
-    if solve is not None:
-        return solve.run(c, a_rows, b, x0, y0, active, iters)
-
-    dev = a_rows.device
-    bsz, r_cap, n = a_rows.shape
-    c = c.to(_F32)
-    a = a_rows.to(_F32)
-    guard = None
-    rows = a
-    if kernel:
-        rows, guard = pack_rows(a)
-    cscale, cs, row_on, be = _scaled(c, b.to(_F32), rows, n)
-    lp = _Lp(*_products(rows, n, delta, kernel), blocked, cs=cs, be=be,
-             row_on=row_on, cscale=cscale, active=active,
-             n_compl=_const(float(r_cap + 2 * n), dev), tol=tol,
-             stall_ratio=stall_ratio)
-    state = _start(lp, None if x0 is None else x0.to(_F32),
-                   None if y0 is None else y0.to(_F32), warm_shift)
-    best_err = torch.full((bsz,), float("inf"), dtype=_F32, device=dev)
-    stall_cnt = torch.zeros((bsz,), dtype=torch.int32, device=dev)
-    for _ in range(-(-iters // check_every)):
-        state, best_err, stall_cnt, go = _boundary(lp, state, best_err,
-                                                   stall_cnt)
-        go = _first_read(go, guard) if guard is not None else _poll(go)
-        guard = None
-        if not go:
-            break
-        COUNTS["chunks"] += 1
-        for _ in range(check_every):
-            state = _newton(lp, state)
-    return _certificate(lp, state)
+    solve = _graph_solve(shape) if graphs else _Solve(*shape, graphs=False)
+    return solve.run(c, a_rows, b, x0, y0, active, iters)
 
 
 def ipm_capture(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
@@ -543,7 +539,8 @@ def ipm_capture(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     no counter but ``ipm_graph.CAPTURES``. Returns whether it captured:
     False on the eager path and for a shape already captured."""
     require_full_f32("ipm_capture")
-    solve = _plan("ipm_capture", a_rows, iters, tol, active, delta,
-                  check_every, x0 is not None, y0 is not None, warm_shift,
-                  factor_backend, stall_ratio, matvec_backend, graphs)[0]
-    return solve is not None and solve.capture()
+    shape, graphs = _plan("ipm_capture", a_rows, iters, tol, active, delta,
+                          check_every, x0 is not None, y0 is not None,
+                          warm_shift, factor_backend, stall_ratio,
+                          matvec_backend, graphs)
+    return graphs and _graph_solve(shape).capture()

@@ -1,11 +1,11 @@
 """Python wrapper of the PDHG chunk kernel (``csrc/pdhg_chunk.cu``).
 
 Replaces ``ldpc_tpu/ops/pallas/pdhg_kernel.py`` (``_kernel``, called by
-``pdhg_chunk_pallas``). :func:`pdhg_chunk` picks by the device of ``a``: a
-CPU tensor goes to the plain twin :func:`..ops.pdhg_ref.pdhg_chunk_ref`, a
-CUDA tensor to the kernel, anything else raises; nothing falls back. On CUDA
-the wrapper checks its inputs, allocates the outputs and launches on the
-current stream without synchronising.
+``pdhg_chunk_pallas``). :func:`pdhg_chunk` picks by the device of ``a``
+(:func:`._launch.on_cpu`): a CPU tensor goes to the plain twin
+:func:`..ops.pdhg_ref.pdhg_chunk_ref`, a CUDA tensor to the kernel. On CUDA
+the wrapper checks its inputs, allocates the outputs and launches
+(:func:`._launch.launch`) on the current stream without synchronising.
 
 ``a`` may be a row slice of a larger per-lane buffer (``a_buf[:, :T]``): its
 rows must be contiguous (strides ``(L, n, 1)``, any lane stride ``L``); the
@@ -32,10 +32,12 @@ from collections import Counter
 import torch
 
 from . import _build
+from ._launch import counter, expect, launch, on_cpu, raise_for
 from .pdhg_ref import pdhg_chunk_ref
 
 LAUNCHES = 0
 TIER_LAUNCHES: Counter = Counter()
+_COUNT = counter(__name__, "LAUNCHES", "TIER_LAUNCHES")
 
 __all__ = ["kernel_plan", "outside_set", "pdhg_chunk", "reset_tier_counts"]
 
@@ -59,29 +61,12 @@ def kernel_plan(n: int, t: int, average: bool = False) -> dict:
     the rows), ``row_groups``, ``threads`` and ``smem_bytes`` per block (for
     a shape that does not fit, the smallest layout's: a cluster of 8)."""
     out = (ctypes.c_longlong * 5)()
-    lib = _build.load()
-    code = lib.ldpc_pdhg_chunk_plan(n, t, int(average), out)
-    if code != 0:
-        msg = lib.ldpc_cuda_error_string(code).decode()
-        raise RuntimeError(f"pdhg_chunk plan failed: CUDA error {code} "
-                           f"({msg})")
+    code = _build.load().ldpc_pdhg_chunk_plan(n, t, int(average), out)
+    if code:
+        raise_for(code, "pdhg_chunk plan")
     return {"fits": bool(out[0]), "blocks_per_lane": int(out[1]),
             "row_groups": int(out[2]), "threads": int(out[3]),
             "smem_bytes": int(out[4])}
-
-
-def _check(name: str, v: torch.Tensor, shape: tuple, dtype: torch.dtype,
-           device: torch.device) -> None:
-    if v.device != device:
-        raise ValueError(f"pdhg_chunk: {name} is on {v.device}, a on "
-                         f"{device}")
-    if v.dtype != dtype:
-        raise TypeError(f"pdhg_chunk: {name} must be {dtype}, got {v.dtype}")
-    if tuple(v.shape) != shape:
-        raise ValueError(f"pdhg_chunk: {name} must have shape {shape}, got "
-                         f"{tuple(v.shape)}")
-    if not v.is_contiguous():
-        raise ValueError(f"pdhg_chunk: {name} must be contiguous")
 
 
 def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
@@ -95,14 +80,11 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
     a fourth value, (B,) bool, true for an active lane whose slice has an
     entry outside the set.
     """
-    global LAUNCHES
-    dev = a.device
-    if dev.type == "cpu":
+    if on_cpu("pdhg_chunk", a):
         out = pdhg_chunk_ref(c, a, b, tau, sigma, x, y, iters,
                              active=active, average=average)
         return (*out, outside_set(a, active))
-    if dev.type != "cuda":
-        raise ValueError(f"pdhg_chunk: no implementation for {dev}")
+    dev = a.device
     if a.dtype != torch.float32:
         raise TypeError(f"pdhg_chunk: a must be torch.float32, got {a.dtype}")
     if a.dim() != 3:
@@ -119,17 +101,17 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
         raise ValueError(f"pdhg_chunk: iters must be >= 1, got {iters}")
     f32 = torch.float32
     for name, v in (("c", c), ("tau", tau), ("x", x)):
-        _check(name, v, (bsz, n), f32, dev)
+        expect("pdhg_chunk", name, v, f32, (bsz, n), dev)
     for name, v in (("b", b), ("sigma", sigma), ("y", y)):
-        _check(name, v, (bsz, t), f32, dev)
+        expect("pdhg_chunk", name, v, f32, (bsz, t), dev)
     if active is not None:
-        _check("active", active, (bsz,), torch.bool, dev)
-    lib = _build.load()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+        expect("pdhg_chunk", "active", active, torch.bool, (bsz,), dev)
     with torch.cuda.device(dev):
         plan = kernel_plan(n, t, average)
     if not plan["fits"]:
-        limit = lib.ldpc_smem_optin_limit(index)
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        limit = _build.load().ldpc_smem_optin_limit(index)
         raise ValueError(f"pdhg_chunk: a lane's slice split over "
                          f"{plan['blocks_per_lane']} blocks needs "
                          f"{plan['smem_bytes']} bytes of shared memory "
@@ -140,19 +122,8 @@ def pdhg_chunk(c, a, b, tau, sigma, x, y, iters: int, active=None,
     err = torch.empty((bsz,), dtype=f32, device=dev)
     flag = torch.empty((bsz,), dtype=torch.int32, device=dev)
     if bsz:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.ldpc_pdhg_chunk(
-                c.data_ptr(), a.data_ptr(), b.data_ptr(), tau.data_ptr(),
-                sigma.data_ptr(), x.data_ptr(), y.data_ptr(),
-                active.data_ptr() if active is not None else None,
-                x_out.data_ptr(), y_out.data_ptr(), err.data_ptr(),
-                flag.data_ptr(), bsz, n, t, a.stride(0), int(iters),
-                int(average), stream)
-        if code != 0:
-            msg = lib.ldpc_cuda_error_string(code).decode()
-            raise RuntimeError(f"pdhg_chunk launch failed: CUDA error {code} "
-                               f"({msg})")
-        LAUNCHES += 1
-        TIER_LAUNCHES[t] += 1
+        launch("pdhg_chunk", "ldpc_pdhg_chunk", dev, c, a, b, tau, sigma, x,
+               y, active, x_out, y_out, err, flag, bsz, n, t, a.stride(0),
+               int(iters), int(average))
+        _COUNT(t)
     return x_out, y_out, err, flag != 0

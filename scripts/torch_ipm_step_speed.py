@@ -18,10 +18,11 @@ twice the 50 MB L2, so that the data comes from HBM). Where the tree has
 kernel of the plan's grid, timed warm) and the bytes bound
 (``step_len_bytes`` / ``update_bytes`` over 3.35 TB/s, which the cold time
 is held against); ``--variants`` then times other layouts of ``VARIANTS``
-(threads, passes, width 1) through the private launchers, held to the twins
-the same way. Exits non-zero when a kernel differs from its twin. The last
-line is one JSON object with every figure and the card (``nvidia-smi``'s
-name and power limit).
+(threads, passes, width 1) through the kernel library's launcher
+(``ops/_launch.py`` ``launch``), held to the twins the same way. Exits
+non-zero when a kernel differs from its twin. The last line is one JSON
+object with every figure and the card (``nvidia-smi``'s name and power
+limit).
 
     python -m scripts.torch_ipm_step_speed [--variants] [--label parent]
 """
@@ -196,17 +197,22 @@ def main(argv=None) -> int:
         print(" ".join(f"{k} {v}" for k, v in row.items()), flush=True)
         rows.append(row)
     if args.variants:
+        from ldpc_tpu_torch.ops._launch import launch
+        from ldpc_tpu_torch.ops.ipm_ref import FLOOR
         for i, (bsz, t, n, plan) in enumerate(VARIANTS):
             label = f"{bsz}x{t}x{n} {plan}"
 
-            def step_len(a, plan=plan):
+            def step_len(a, plan=plan, shape=(bsz, t, n)):
                 ap = torch.empty(a[0].shape[0], device=dev)
                 ad = torch.empty_like(ap)
-                ipm_kernel._step_len_launch(a, ap, ad, 0.995, plan)
+                launch("ipm_step_len", "ldpc_ipm_step_len", dev, *a, ap, ad,
+                       *shape, 0.995, plan["vec"], plan["threads"])
                 return ap, ad
 
-            def update(state, dirs, ap, ad, plan=plan):
-                ipm_kernel._update_launch(state, dirs, ap, ad, plan)
+            def update(state, dirs, ap, ad, plan=plan, shape=(bsz, t, n)):
+                launch("ipm_update", "ldpc_ipm_update", dev, *state, *dirs,
+                       ap, ad, *shape, FLOOR, 1.0 - FLOOR, plan["vec"],
+                       plan["threads"])
 
             row = {"shape": f"{bsz}x{t}x{n}", "plan": plan, **_measure(
                 bsz, t, n, 200 + i, step_len, update, bad, label),

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_tpu_torch.ops import chol_kernel, ipm_graph, ipm_solver
+from ldpc_tpu_torch.ops import _launch, chol_kernel, ipm_graph, ipm_solver
 from ldpc_tpu_torch.ops.chol import (CholFactors, blocked_cho_solve,
                                      blocked_cholesky, chain_cholesky, fused)
 from ldpc_tpu_torch.ops.chol_kernel import (FUSED_MAX_N, chol_factor,
@@ -88,14 +88,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         chol_kernel._fused_n("chol_solve", 0)
     assert chol_kernel._fused_n("chol_factor", 280) == 320
     assert chol_kernel._fused_n("chol_factor", 64) == 64
-    with pytest.raises(TypeError, match="float32"):
-        chol_kernel._check("m", torch.zeros(2, 3, 3, dtype=torch.float64),
-                           (2, 3, 3))
-    with pytest.raises(ValueError, match=r"must be \(2, 3, 3\)"):
-        chol_kernel._check("m", torch.zeros(2, 3, 4), (2, 3, 3))
-    with pytest.raises(ValueError, match="contiguous"):
-        chol_kernel._check("m", torch.zeros(2, 3, 3).transpose(1, 2),
-                           (2, 3, 3))
+    # the check the wrappers make of their tensors on CUDA
+    cpu = torch.device("cpu")
+    with pytest.raises(TypeError,
+                       match="chol_factor: m must be torch.float32"):
+        _launch.expect("chol_factor", "m",
+                       torch.zeros(2, 3, 3, dtype=torch.float64),
+                       torch.float32, (2, 3, 3), cpu)
+    with pytest.raises(ValueError,
+                       match=r"chol_solve: l must have shape \(2, 3, 3\)"):
+        _launch.expect("chol_solve", "l", torch.zeros(2, 3, 4), torch.float32,
+                       (2, 3, 3), cpu)
+    with pytest.raises(ValueError, match="chol_factor: m must be contiguous"):
+        _launch.expect("chol_factor", "m",
+                       torch.zeros(2, 3, 3).transpose(1, 2), torch.float32,
+                       (2, 3, 3), cpu)
 
 
 @pytest.mark.parametrize("n", [280, 640])
@@ -256,16 +263,15 @@ def test_kernel_data_flow_matches_the_twin(n):
 
 def test_graphs_replay_the_fused_counters():
     """The fused kernels' counters are among those a graph replay adds, the
-    by-shape Counter among the Counters."""
-    names = [name for mod, name in ipm_graph._COUNTERS if mod is chol_kernel]
-    assert names == ["LAUNCHES", "FACTOR_LAUNCHES", "SOLVE_LAUNCHES",
-                     "FACTOR_SHAPE_LAUNCHES"]
-    snap = ipm_graph._snapshot()
-    assert isinstance(snap[[n for _, n in ipm_graph._COUNTERS].index(
-        "FACTOR_SHAPE_LAUNCHES")], Counter)
-    delta = [Counter({(128, 280): 5}) if isinstance(v, Counter) else 0
-             for v in snap]
-    delta[[n for _, n in ipm_graph._COUNTERS].index("FACTOR_LAUNCHES")] = 5
+    by-shape Counter the split of the factor's."""
+    declared = {c.name: c for c in _launch.COUNTERS
+                if c.module == chol_kernel.__name__}
+    assert [(c.name, c.by) for c in declared.values()] == [
+        ("LAUNCHES", None), ("FACTOR_LAUNCHES", "FACTOR_SHAPE_LAUNCHES"),
+        ("SOLVE_LAUNCHES", None)]
+    snap = _launch.snapshot()
+    assert isinstance(chol_kernel.FACTOR_SHAPE_LAUNCHES, Counter)
+    delta = [(declared["FACTOR_LAUNCHES"], 5, Counter({(128, 280): 5}))]
     part = ipm_graph.Captured(type("G", (), {"replay": lambda self: None})(),
                               delta, 5, 0, [])
     try:
@@ -275,7 +281,7 @@ def test_graphs_replay_the_fused_counters():
         assert chol_kernel.FACTOR_LAUNCHES == before[0] + 5
         assert chol_kernel.FACTOR_SHAPE_LAUNCHES[128, 280] == before[1] + 5
     finally:
-        ipm_graph._restore(snap)
+        _launch.restore(snap)
 
 
 # -- on the card ------------------------------------------------------------
@@ -370,7 +376,7 @@ def test_kernels_refuse_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         chol_factor(torch.zeros(2, 8, 8, device=cuda_device).transpose(1, 2))
     l, inv = chol_factor(_card_spd(cuda_device, 2, 8, 1))
-    with pytest.raises(ValueError, match="must be"):
+    with pytest.raises(ValueError, match="chol_solve: l must have shape"):
         chol_solve(l, inv, torch.zeros(3, 8, device=cuda_device), 8)
     assert (chol_kernel.FACTOR_LAUNCHES,
             chol_kernel.SOLVE_LAUNCHES) == (before[0] + 1, before[1])

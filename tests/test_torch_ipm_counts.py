@@ -5,9 +5,10 @@
 On the CPU, eager: one ``ipm_box_lp`` call moves ``solves`` by 1, ``chunks``
 by the Newton-step chunks its loop ran and ``reads.poll`` by the loop's
 host reads of its flag, one at each chunk boundary it reached; the spans of
-the graph path stay closed; ``ipm_capture`` captures nothing there; AGC-ALP's
-decode moves them within the bounds its solves set, and ALP's PDHG decode
-not at all. On the card (marked
+the graph path stay closed; ``ipm_capture`` captures nothing there; a
+stream's captures of AGC-ALP's row tiers take the shapes of the solves they
+serve; AGC-ALP's decode moves them within the bounds its solves set, and
+ALP's PDHG decode not at all. On the card (marked
 ``gpu``; ``python -m pytest tests/test_torch_ipm_counts.py -m gpu
 --noconftest``): a graph solve moves them exactly as the eager solve does,
 ``lp.capture`` opens only on a solve shape's first call, and ``lp.copy_in``
@@ -140,6 +141,45 @@ def test_capture_on_the_eager_path_is_a_no_op():
         ipm_solver.ipm_capture(c, a, b, graphs=True)
     with pytest.raises(ValueError, match="check_every"):
         ipm_solver.ipm_capture(c, a, b, check_every=0)
+
+
+def _shape(args, kw):
+    """What keys a solve's graphs: the rows' shape, the settings, and which
+    tensors (warm start, mask) are given."""
+    return (tuple(args[1].shape),
+            sorted((k, v) for k, v in kw.items() if v is not None
+                   and not isinstance(v, torch.Tensor)),
+            sorted(k for k, v in kw.items() if isinstance(v, torch.Tensor)))
+
+
+def test_a_streams_captures_key_the_solves_they_serve(monkeypatch):
+    """AGC-ALP's captures of every row tier (``_capture_tiers``) and its
+    solves take their arguments from one method (``_ipm_args``), so each
+    solve's shape is one that the stream's first chunk captured."""
+    from ldpc_tpu_torch.decoders import agc_alp, alp
+    captured, solved = set(), []
+    real_capture, real_solve = agc_alp.ipm_capture, alp.ipm_box_lp
+
+    def capture(*args, **kw):
+        captured.add(repr(_shape(args, kw)))
+        return real_capture(*args, **kw)
+
+    def solve(*args, **kw):
+        solved.append(repr(_shape(args, kw)))
+        return real_solve(*args, **kw)
+
+    monkeypatch.setattr(agc_alp, "ipm_capture", capture)
+    monkeypatch.setattr(alp, "ipm_box_lp", solve)
+    rng = np.random.default_rng(4)
+    llrs = torch.from_numpy(
+        (1.0 + 1.5 * rng.standard_normal((4, H.shape[1]))).astype(
+            np.float32))
+    dec = AGCALPDecoder(H, device="cpu")
+    st = dec.stream_init(llrs)
+    for _ in range(4):
+        st = dec.stream_chunk(st)
+    assert len(captured) == len(dec._tiers) + 1
+    assert solved and set(solved) <= captured
 
 
 def test_agc_alp_decode_moves_the_counters_and_alp_does_not():

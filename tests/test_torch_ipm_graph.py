@@ -37,12 +37,13 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
-from ldpc_tpu_torch.ops import ipm_graph, ipm_kernel
+from ldpc_tpu_torch.ops import _launch, chol_kernel, ipm_graph, ipm_kernel
 from ldpc_tpu_torch.ops.gemv_kernel import pack_rows
 from ldpc_tpu_torch.ops.ipm_kernel import (MAX_THREADS, PER_THREAD,
                                            ipm_step_len, ipm_step_plan,
                                            ipm_update)
-from ldpc_tpu_torch.ops.ipm_ref import ipm_step_len_ref, ipm_update_ref
+from ldpc_tpu_torch.ops.ipm_ref import (FLOOR, ipm_step_len_ref,
+                                        ipm_update_ref)
 from ldpc_tpu_torch.ops.ipm_solver import ipm_box_lp
 
 try:  # the card's host has no JAX; only the gpu cases run there
@@ -351,11 +352,11 @@ def test_pack_rows_into_a_buffer():
 def test_replay_adds_the_captured_counts():
     """What a replay adds to the counters (the capture's delta, ints and
     per-tier Counters alike) and to the replay tallies."""
-    before = ipm_graph._snapshot()
+    before = _launch.snapshot()
     tallies = (ipm_graph.REPLAYS, ipm_graph.CALLS, ipm_graph.NODES)
-    delta = [2 if not isinstance(v, Counter) else Counter({128: 3})
-             for v in before]
-    calls = sum(d for d in delta if not isinstance(d, Counter))
+    delta = [(c, 2, None if c.by is None else Counter({128: 3}))
+             for c in _launch.COUNTERS]
+    calls = sum(n for _, n, _ in delta)
 
     class _Graph:
         replays = 0
@@ -367,17 +368,16 @@ def test_replay_adds_the_captured_counts():
     try:
         ipm_graph.replay(part)
         ipm_graph.replay(part)
-        after = ipm_graph._snapshot()
-        for b, a, d in zip(before, after, delta):
-            if isinstance(d, Counter):
-                assert a[128] - b[128] == 6
-            else:
-                assert a - b == 4
+        after = _launch.snapshot()
+        for (c, (n0, by0)), (_, (n1, by1)) in zip(before, after):
+            assert n1 - n0 == 4
+            if c.by is not None:
+                assert by1[128] - by0[128] == 6
         assert part.graph.replays == 2
         assert (ipm_graph.REPLAYS - tallies[0], ipm_graph.CALLS - tallies[1],
                 ipm_graph.NODES - tallies[2]) == (2, 2 * calls, 80)
     finally:
-        ipm_graph._restore(before)
+        _launch.restore(before)
         ipm_graph.REPLAYS, ipm_graph.CALLS, ipm_graph.NODES = tallies
 
 
@@ -409,6 +409,21 @@ def _card_inputs(dev, bsz, t, n, case, offset=0):
     return _step_args(v, d), _state(v), _dirs(d), (put(ap), put(ad))
 
 
+def _step_len_by(plan, args, ap, ad):
+    """One step-length launch by ``plan``, not the wrapper's."""
+    (bsz, t), n = args[0].shape, args[2].shape[1]
+    _launch.launch("ipm_step_len", "ldpc_ipm_step_len", ap.device, *args, ap,
+                   ad, bsz, t, n, 0.995, plan["vec"], plan["threads"])
+
+
+def _update_by(plan, state, dirs, ap, ad):
+    """One update launch by ``plan``, in place."""
+    (bsz, t), n = state[2].shape, state[0].shape[1]
+    _launch.launch("ipm_update", "ldpc_ipm_update", ap.device, *state, *dirs,
+                   ap, ad, bsz, t, n, FLOOR, 1.0 - FLOOR, plan["vec"],
+                   plan["threads"])
+
+
 def _kernels_vs_twins(dev, bsz, t, n, case, offset=0, plan=None):
     """Both kernels (through the wrappers, or by ``plan``) against their
     twins on the same card inputs, bit for bit."""
@@ -424,8 +439,8 @@ def _kernels_vs_twins(dev, bsz, t, n, case, offset=0, plan=None):
                 ipm_kernel.UPDATE_LAUNCHES - before[1]) == (1, 1)
     else:
         got = (torch.empty_like(aps[0]), torch.empty_like(aps[0]))
-        ipm_kernel._step_len_launch(args, *got, 0.995, plan)
-        ipm_kernel._update_launch(out, dirs, *aps, plan)
+        _step_len_by(plan, args, *got)
+        _update_by(plan, out, dirs, *aps)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert np.array_equal(_bits(g), _bits(w))
@@ -498,9 +513,9 @@ def test_kernels_refuse_an_illegal_layout(cuda_device):
     for plan in (_layout(4, 4, 352), _layout(4, 1, 1056), _layout(4, 1, 48),
                  _layout(4, 2, 352)):
         with pytest.raises(RuntimeError, match="launch failed"):
-            ipm_kernel._step_len_launch(args, ap, ap.clone(), 0.995, plan)
+            _step_len_by(plan, args, ap, ap.clone())
         with pytest.raises(RuntimeError, match="launch failed"):
-            ipm_kernel._update_launch(state, dirs, *aps, plan)
+            _update_by(plan, state, dirs, *aps)
 
 
 @pytest.mark.gpu
@@ -541,21 +556,24 @@ def test_graph_solve_equals_eager_on_card(cuda_device, t, mode):
         kw["active"] = torch.arange(128, device=cuda_device) % 3 != 0
     runs = []           # the first graph solve captures its shape's graphs
     for graphs in (False, True, True):
-        before = ipm_graph._snapshot()
+        before = _launch.snapshot()
         out = ipm_box_lp(c, a, b, graphs=graphs, **kw)
         torch.cuda.synchronize()
-        delta = [x - y for x, y in zip(ipm_graph._snapshot(), before)]
-        runs.append((out, delta))
+        runs.append((out, _launch.since(before)))
     (eager, d_eager), *graph_runs = runs
     for out, delta in graph_runs:
         for g, w in zip(out, eager):
             assert np.array_equal(_bits(g), _bits(w))
         assert delta == d_eager
-    # every hand-written kernel launched but the blocked chain's diagonal
-    # kernel (n = 280 takes the fused factor and solve)
-    counted = {name: d for (_, name), d in zip(ipm_graph._COUNTERS, d_eager)
-               if not isinstance(d, Counter)}
-    assert counted.pop("LAUNCHES") == 0
+    # every hand-written kernel of the Newton step launched but the blocked
+    # chain's diagonal kernel (n = 280 takes the fused factor and solve)
+    launched = {(c.module, c.name): n for c, n, _ in d_eager}
+    counted = {(c.module, c.name): launched.get((c.module, c.name), 0)
+               for c in _launch.COUNTERS
+               if c.module.rsplit(".", 1)[1] in ("gemv_kernel", "chol_kernel",
+                                                 "ipm_kernel")}
+    assert len(counted) == 8
+    assert counted.pop((chol_kernel.__name__, "LAUNCHES")) == 0
     assert min(counted.values()) > 0
 
 
