@@ -65,7 +65,10 @@ printing one line before the next starts:
    step); A x and A^T y on the packed int8 copy
    (``pack_rows``) of row slices of a (128, 1408, 280) buffer at every row
    tier of the path (T = 128 ... 1408) and on a slice ragged in every
-   dimension (3 x 63 x 283), each call bit-identical to a second one, and
+   dimension (3 x 63 x 283), A^T y also at H02's 128 x 2176 x 640, each call
+   bit-identical to a second one; at each of those shapes the IPM's
+   right-hand side (``ipm_kernel.newton_rhs``, A^T y's epilogue) bit for
+   bit with its twin's operations on the kernel's own A^T y; and
    the normal matrix on the same packed copy at T = 128, 512, 1152 and 1408
    and on the ragged slice, with d over 1e-8...1e8 as late in a Newton
    step, M exactly symmetric and a second call bit-identical (bound: the
@@ -90,24 +93,28 @@ printing one line before the next starts:
    pack as CUDA graphs of calls (device time), warm and with a cold L2,
    beside each one's bound, and the host's cost per call apart; the normal
    matrix the same way beside ``baddbmm`` on the float32 slice. Last the
-   IPM step's two kernels (``csrc/ipm_step.cu``: the step lengths and the
-   masked update, XLA fusions in JAX) against their twins
-   (``ops/ipm_ref.py``) bit for bit at T = 128, 640 and 1408 (128 lanes,
+   IPM Newton step's three kernels (``csrc/ipm_step.cu``: the prep, the
+   predict and the correct, XLA fusions in JAX) against their twins
+   (``ops/ipm_ref.py``; elementwise outputs bit for bit, mu and mu_aff
+   within (T + 2n) 2^-23 sum |terms|; the largest |diff| of each kernel's
+   outputs reported) at T = 128, 640 and 1408 (128 lanes,
    n = 280), at 256 lanes of T = 1408 and at H02's deepest tier (T = 2176,
    n = 640; lanes with NaN and inf directions, all-positive directions,
-   ties, steps clamped to 1, steps past the box), each with its launch
-   plan (``ipm_step_plan``), timed as a CUDA graph of calls cold (inputs
-   rotated past the L2) and warm, and by events, beside its twin's eager
-   ops (counted and timed the same ways), its bound (bytes over the HBM
-   rate) and the launch floor: an empty kernel of the plan's grid timed
+   ties, steps clamped to 1, scalings past their clamp, mu 0), each with
+   its launch plan (``ipm_step_plan``), timed as a CUDA graph of calls cold
+   (inputs rotated past the L2) and warm, and by events, beside its twin's
+   eager ops (counted and timed the same ways), its bound (bytes over the
+   HBM rate) and the launch floor: an empty kernel of the plan's grid timed
    the same way;
 8. AGC-ALP path at full width: ``run_sweep`` with decoders ``agc-alp``,
    -3 dB, 512 trials in batches of 128 (optimalH, ``max_rows`` 1000,
    capacity 1408, the IPM as CUDA graphs, the default on CUDA), which
    streams (``streaming="auto"``: finished lanes refilled after each cut
-   round), CSVs under ``build/``, with the eight kernels' launch counts
+   round), CSVs under ``build/``, with the nine kernels' launch counts
    reset before and read after, and the matvecs' and the normal matrix's
-   launches per row tier. Gates: FER within |z| < 3.5 of the reference's
+   launches per row tier; the device operations (kernel, copy and memset
+   nodes) of each captured solve shape's chunk graph per Newton step, at
+   most ``IPM_STEP_NODES``. Gates: FER within |z| < 3.5 of the reference's
    0.8704, no cut dropped, every kernel launched. Then the same 512 trials
    streamed with the IPM as CUDA graphs and with ``ipm_graphs = False``
    (the eager loop), each lane's bits, success, rounds, ``cum_h``,
@@ -121,7 +128,8 @@ printing one line before the next starts:
    (non-view ATen operations, the hand-written kernels outside a graph and
    one per graph replay) and device operations (the same with each replay
    counted as its graph's kernel, copy and memset nodes); the graph run's
-   host launches streamed must be at most a tenth of the eager run's. The
+   host launches streamed must be at most ``AGC_GRAPH_HOST_LAUNCHES`` per
+   128 trials (their share of the eager run's is printed). The
    peak device memory of the phase and the solve shapes captured. Then the
    same 128 lanes decoded with the kernel backends and with the plain ones
    (``ipm_matvec_backend``/``ipm_factor_backend``/``gauss_backend``
@@ -318,6 +326,14 @@ GAUSS_RAGGED = (63, 283)
 FIRST_GAUSS_MS = 0.226
 AGC_AGREE_MIN = 0.95
 AGC_BATCHED = 256
+# the graph run's host launches per 128 trials streamed, at most: one
+# replay per chunk and boundary and the cut loop's own operations between
+# solves (measured 9,401 with a Newton step of ~112 operations and 9,480
+# with one of twelve launches, H100), with ~5 % of room
+AGC_GRAPH_HOST_LAUNCHES = 10_000
+# the device operations a Newton step may make in a chunk graph (n <= 320):
+# twelve hand-written launches (~112 when its glue ran as PyTorch ops)
+IPM_STEP_NODES = 14
 # the IPM step's two kernels: (lanes, T, n) held to their twins, the
 # path's tiers (optimalH) first, then 256 lanes and H02's deepest tier
 IPM_SHAPES = ((AGC_LANES, 128, 280), (AGC_LANES, 640, 280),
@@ -951,8 +967,9 @@ AGC_COUNTERS = {"gf2_eliminate": ("gauss_kernel", "LAUNCHES"),
                 "normal_build": ("gemv_kernel", "NORMAL_LAUNCHES"),
                 "chol_factor": ("chol_kernel", "FACTOR_LAUNCHES"),
                 "chol_solve": ("chol_kernel", "SOLVE_LAUNCHES"),
-                "ipm_step_len": ("ipm_kernel", "STEP_LEN_LAUNCHES"),
-                "ipm_update": ("ipm_kernel", "UPDATE_LAUNCHES")}
+                "ipm_prep": ("ipm_kernel", "PREP_LAUNCHES"),
+                "ipm_predict": ("ipm_kernel", "PREDICT_LAUNCHES"),
+                "ipm_correct": ("ipm_kernel", "CORRECT_LAUNCHES")}
 
 
 # every kernel of the port
@@ -1117,11 +1134,19 @@ def _gemv_tiers(a_buf, gen):
     and cold (rotating over copies that fill twice the L2) beside its plain
     version, the one library call on the float32 slice (``bmm``) and the
     pack. Last, a case ragged in every dimension (B = 3, T = 63, n = 283).
-    Returns per-tier rows for each kernel and the ragged case's errors."""
+    At each tier, the ragged case and H02's deepest (B x 2176 x 640): the
+    A^T y kernel's epilogue, the IPM's right-hand side (``newton_rhs``),
+    bit for bit with its twin's operations on the kernel's own A^T y (held
+    to ``gemv_t_ref`` on the same inputs above), with a NaN and two infs
+    among rd, rl and ru, and timed warm beside plain A^T y. Returns per-tier
+    rows for each kernel, the ragged case's errors and the epilogue's
+    rows."""
     import torch
     from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
                                                 pack_rows)
     from ldpc_tpu_torch.ops.gemv_ref import gemv_ref, gemv_t_ref, unpack_rows
+    from ldpc_tpu_torch.ops.ipm_kernel import newton_rhs
+    from ldpc_tpu_torch.ops.ipm_ref import newton_rhs_ref
 
     def on_copy(twin, n):
         """The kernel's plain version: the float32 twin on the unpacked
@@ -1142,10 +1167,35 @@ def _gemv_tiers(a_buf, gen):
                                  f"{same}, packed copy exact {bool(exact)}")
         return err
 
+    def check_rhs(a8, v, n, label):
+        lanes = a8.shape[0]
+        rd, rl, ru = (torch.randn((lanes, n), generator=gen, device=dev)
+                      for _ in range(3))
+        rd[0, 0], rl[0, 1], ru[-1, 2] = (float("nan"), float("inf"),
+                                         -float("inf"))
+        got = newton_rhs(a8, v, rd, rl, ru, n)
+        want = newton_rhs_ref(rd, batched_gemv_t(a8, v, n), rl, ru)
+        fin = want.isfinite()
+        err = float((got.double() - want.double()).abs()[fin].max())
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        row = {"shape": label, "max_abs_err": err, "bit_identical": same,
+               "ms": _graph_ms(newton_rhs, [(a8, v, rd, rl, ru, n)]
+                               * WARM_CALLS),
+               "gemv_tr_ms": _graph_ms(batched_gemv_t, [(a8, v, n)]
+                                       * WARM_CALLS)}
+        print(f"[7 agc-kernels] newton_rhs {label}: bit for bit with "
+              f"-rd - A^T v + rl - ru on the kernel's A^T v {same} (max "
+              f"|diff| {err:.3e}, NaN and infs included); warm "
+              f"{row['ms']:.5f} ms, plain A^T y {row['gemv_tr_ms']:.5f} ms",
+              flush=True)
+        if not same:
+            raise AssertionError(f"newton_rhs differs from its twin ({label})")
+        return row
+
     dev = a_buf.device
     bsz, _, n = a_buf.shape
     x = torch.rand((bsz, n), generator=gen, device=dev)
-    out = {"gemv_fwd": [], "gemv_tr": []}
+    out = {"gemv_fwd": [], "gemv_tr": [], "newton_rhs": []}
     for t in GEMV_TIERS:
         a = a_buf[:, :t]
         y = torch.rand((bsz, t), generator=gen, device=dev)
@@ -1194,6 +1244,7 @@ def _gemv_tiers(a_buf, gen):
                   f"({row['f32_frac']:.3f}); pack warm {pack['pack_ms']:.5f} "
                   f"cold {pack['pack_cold_ms']:.5f} ms", flush=True)
             out[name].append(row)
+        out["newton_rhs"].append(check_rhs(a8, y, n, f"{bsz}x{t}x{n}"))
         del copies8, copies32
     # the host's cost per call, which the host-bound path pays at any T
     out["host_us"] = {
@@ -1220,6 +1271,19 @@ def _gemv_tiers(a_buf, gen):
           f"{ragged['gemv_tr']:.3e}, within bound, repeat bit-identical",
           flush=True)
     out["gemv_ragged"] = ragged
+    out["newton_rhs"].append(check_rhs(a8, y, 283, "3x63x283 ragged"))
+    # H02's width at its deepest tier: lanes split over blocks of A^T y
+    a = torch.randint(-1, 2, (bsz, 2176, H02_N), generator=gen,
+                      device=dev).float()
+    a8, exact = pack_rows(a)
+    y = torch.rand((bsz, 2176), generator=gen, device=dev)
+    err = check("gemv_tr", lambda m, v: batched_gemv_t(m, v, H02_N),
+                gemv_t_ref, a, a8, exact, y, "H02")
+    print(f"[7 agc-kernels] gemv_tr {bsz}x2176x{H02_N} (H02): max |diff| "
+          f"{err:.3e}, within bound, repeat bit-identical", flush=True)
+    out["gemv_tr_h02"] = err
+    out["newton_rhs"].append(check_rhs(a8, y, H02_N,
+                                       f"{bsz}x2176x{H02_N} H02"))
     return out
 
 
@@ -1323,115 +1387,192 @@ def _normal_tiers(a_buf, gen):
 
 
 def _ipm_case(lanes, t, n, gen):
-    """A Newton step's inputs: ``lanes`` lanes of interior values and
-    random directions at T rows and n columns, and special lanes: NaN in
-    dx (1) and in dy (2), infinite directions (3), all-positive
-    directions, so both steps are 1 (4), one ratio in many
-    places (5), directions so small that the steps clamp to 1 (6), steps
-    past the box and the floors (7). Step lengths for the update drawn in
-    [0, 1.2)."""
+    """A Newton step's inputs on the card: ``lanes`` lanes of an interior
+    iterate at T rows and n columns, the prep's A^T y, scaled objective and
+    rhs, a direction's terms and mu, its dx and A dx; and special lanes:
+    NaN in dx (1), NaN in A dx, so in ds and dy, in A^T y, and 0 / 0 in the
+    scalings (2), infinite directions (3), directions along which nothing
+    bounds a step, so both steps are 1 (4), one ratio in many places (5),
+    directions so small that the steps clamp to 1 (6), scalings past their
+    clamp, mu 0 and steps past the box (7). Returns (the arrays by name,
+    the state, the terms, n_compl)."""
     import torch
+    from ldpc_tpu_torch.ops.ipm_ref import Terms
     dev = torch.device("cuda")
-    inf = float("inf")
+    inf, nan = float("inf"), float("nan")
 
-    def pos(w):
-        return torch.rand((lanes, w), generator=gen, device=dev) * 5.0 + 1e-3
+    def pos(w, lo=1e-3, hi=5.0):
+        return torch.rand((lanes, w), generator=gen, device=dev) * (
+            hi - lo) + lo
 
-    def dirs(w):
-        return torch.randn((lanes, w), generator=gen, device=dev) * 2.0
+    def nrm(w, sd=2.0):
+        return torch.randn((lanes, w), generator=gen, device=dev) * sd
 
-    x = torch.rand((lanes, n), generator=gen, device=dev) * 0.998 + 1e-3
-    v = {"s": pos(t), "x": x, "y": pos(t), "zl": pos(n), "zu": pos(n)}
-    d = {"ds": dirs(t), "dx": dirs(n), "dy": dirs(t), "dzl": dirs(n),
-         "dzu": dirs(n), "adx": dirs(t)}
-    d["dx"][1, 3] = float("nan")
-    d["dy"][2, -1] = float("nan")
-    d["ds"][3, 2], d["dx"][3, 1] = -inf, -inf
-    d["dy"][3, 0], d["dzl"][3, 0] = inf, inf
-    for k in ("ds", "dy", "dzl", "dzu"):
-        d[k][4] = d[k][4].abs()
-    d["dx"][4] = 0.0
-    for k in ("s", "y"):
-        v[k][5, ::3] = 0.75
-    for k in ("ds", "dy"):
-        d[k][5, ::3] = -1.5
-    v["x"][5, ::4], d["dx"][5, ::4] = 0.25, -0.5
-    v["zl"][5, ::5], d["dzl"][5, ::5] = 1.0, -2.0
-    for k in d:
-        d[k][6] *= 1e-5
-    d["dx"][7] = torch.where(d["dx"][7] < 0, -4.0, 4.0)
-    d["ds"][7], d["dy"][7] = -10.0, -10.0
+    v = {"x": pos(n, 1e-3, 1.0 - 1e-3), "s": pos(t), "y": pos(t),
+         "zl": pos(n), "zu": pos(n), "ax": nrm(t, 3.0), "aty": nrm(n),
+         "cs": nrm(n), "be": nrm(t, 3.0), "rp": nrm(t), "rd": nrm(n),
+         "dy_s": pos(t), "dxl": pos(n), "dxu": pos(n), "ry": nrm(t),
+         "rl": nrm(n), "ru": nrm(n), "dx": nrm(n), "adx": nrm(t),
+         "mu": pos(1)[:, 0], "v": nrm(t)}
+    v["dxx"] = v["dxl"] + v["dxu"]
+    v["dx"][1, 3] = nan
+    v["adx"][2, -1], v["aty"][2, 0] = nan, nan
+    v["y"][2, 1] = v["s"][2, 1] = 0.0
+    v["dx"][3, 1], v["rp"][3, 2], v["ry"][3, 0], v["rl"][3, 0] = (
+        -inf, inf, inf, inf)
+    v["rp"][4] = -v["rp"][4].abs()
+    for k in ("ry", "rl", "ru"):
+        v[k][4] = v[k][4].abs()
+    for k in ("adx", "dy_s", "dxl", "dxu", "dx"):
+        v[k][4] = 0.0
+    v["s"][5, ::3] = v["y"][5, ::3] = 0.75
+    v["rp"][5, ::3], v["adx"][5, ::3] = 1.5, 0.0
+    v["dy_s"][5, ::3], v["ry"][5, ::3] = 0.0, -1.5
+    v["x"][5, ::4], v["dx"][5, ::4] = 0.25, -0.5
+    v["zl"][5, ::5], v["dxl"][5, ::5], v["rl"][5, ::5] = 1.0, 0.0, -2.0
+    for k in ("rp", "ry", "rl", "ru", "dx", "adx"):
+        v[k][6] *= 1e-5
+    v["s"][7, :5] = v["zl"][7, :5] = 1e-12
+    v["mu"][7] = 0.0
+    v["dx"][7] = torch.where(v["dx"][7] < 0, -4.0, 4.0)
     v["w"] = 1.0 - v["x"]
-    v["ax"] = torch.randn((lanes, t), generator=gen, device=dev) * 3.0
-    ap = torch.rand(lanes, generator=gen, device=dev) * 1.2
-    ad = torch.rand(lanes, generator=gen, device=dev) * 1.2
-    return v, d, ap, ad
+    state = tuple(v[k] for k in ("x", "w", "s", "y", "zl", "zu", "ax"))
+    terms = Terms(*(v[k] for k in Terms._fields))
+    return v, state, terms, torch.full((), float(t + 2 * n), device=dev)
+
+
+def _ipm_checks(v, state, terms, nc, got, want):
+    """Each step kernel against its twin on the same inputs: every
+    elementwise output bit for bit, mu and mu_aff within (T + 2n) 2^-23
+    sum |terms| / n_compl (the corrector's targets against the twin given
+    the kernel's mu_aff), the special lanes' step lengths and iterates.
+    Returns {kernel: whether it held} and {kernel: (the largest |got -
+    want| over its outputs' entries where the twin's are finite, the
+    largest share of its bound a sum used, or None)}."""
+    import torch
+    from ldpc_tpu_torch.ops.ipm_ref import (Terms, corrector_targets_ref,
+                                            directions_ref)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def diff(a, b):
+        fin = b.isfinite()
+        return (a.double() - b.double()).abs()[fin]
+
+    def worst(pairs):
+        return max((float(d.max()) for d in (diff(a, b) for a, b in pairs)
+                    if d.numel()), default=0.0)
+
+    def close(a, b, terms_abs):
+        nan, fin = b.isnan(), b.isfinite()
+        bound = 2.0 ** -23 * terms_abs.double()
+        return bool(torch.equal(a.isnan(), nan)
+                    and torch.equal(a[~nan & ~fin], b[~nan & ~fin])
+                    and (diff(a, b) <= bound[fin]).all())
+
+    def share(a, b, terms_abs):
+        fin = b.isfinite()
+        d = diff(a, b) / (2.0 ** -23 * terms_abs.double()[fin])
+        return float(d.max()) if d.numel() else 0.0
+
+    x, w, s, y, zl, zu, ax = state
+    dx, adx = v["dx"], v["adx"]
+    (gp, gq, gc), (wp, wq, wc) = got, want
+    mu_abs = ((y * s).abs().sum(-1) + (zl * x).abs().sum(-1)
+              + (zu * w).abs().sum(-1))
+    ok = {"ipm_prep": all(same(getattr(gp, k), getattr(wp, k))
+                          for k in Terms._fields if k != "mu")
+          and close(gp.mu, wp.mu, mu_abs)}
+    errs = {"ipm_prep": (worst(zip(gp, wp)), share(gp.mu, wp.mu, mu_abs))}
+    dirs = directions_ref(terms, dx, adx)
+    _, dya, dsa, dzla, dzua, _ = dirs
+    ap_, ad_ = wq[1][:, None], wq[2][:, None]
+    aff = (((y + ad_ * dya) * (s + ap_ * dsa)).abs().sum(-1)
+           + ((zl + ad_ * dzla) * (x + ap_ * dx)).abs().sum(-1)
+           + ((zu + ad_ * dzua) * (w - ap_ * dx)).abs().sum(-1))
+    targets = corrector_targets_ref(state, terms, dirs, gq[3])
+    ok["ipm_predict"] = (same(gq[1], wq[1]) and same(gq[2], wq[2])
+                         and close(gq[3], wq[3], aff)
+                         and all(same(getattr(gq[0], k), u) for k, u in
+                                 zip(("ry", "rl", "ru", "v"), targets))
+                         and float(gq[1][4]) == float(gq[2][4]) == 1.0)
+    errs["ipm_predict"] = (
+        worst([(gq[1], wq[1]), (gq[2], wq[2]), (gq[3], wq[3]),
+               *((getattr(gq[0], k), u)
+                 for k, u in zip(("ry", "rl", "ru", "v"), targets))]),
+        share(gq[3], wq[3], aff))
+    ok["ipm_correct"] = (all(same(g, u) for g, u in zip(gc[0], wc[0]))
+                         and same(gc[1], wc[1]) and same(gc[2], wc[2])
+                         and float(gc[1][6]) == float(gc[2][6]) == 1.0
+                         and same(gc[0][6][1], ax[1])
+                         and same(gc[0][6][2], ax[2]))
+    errs["ipm_correct"] = (worst([*zip(gc[0], wc[0]), (gc[1], wc[1]),
+                                  (gc[2], wc[2])]), None)
+    return ok, errs
 
 
 def _ipm_step_tiers(gen):
-    """Phase 7's IPM step kernels at each shape of IPM_SHAPES: the step
-    lengths and the masked update held to their twins bit for bit (NaN,
+    """Phase 7's IPM step kernels at each shape of IPM_SHAPES: the prep,
+    the predict and the correct held to their twins (``_ipm_checks``; NaN,
     inf, all-positive, tied, clamped lanes included), then timed as CUDA
     graphs of calls (device time) cold (rotating over copies of every
     input that fill twice the L2: the bound's HBM bytes) and warm (the same
     inputs each call, in L2 as on the solve's path, where the Newton step
     has just written them), and by events (with the host's launch), beside
-    the twins' ~50 and ~30 eager ops (cold, counted and by events) and the
-    launch floor: an empty kernel of the same grid
-    (``ipm_kernel.empty_kernel``) as a CUDA graph of calls. Bound: bytes
-    (each input read once, each output written once, ``step_len_bytes`` /
-    ``update_bytes``) over the HBM rate. Returns per-shape rows for each
+    the twins' eager ops (cold, counted and by events) and the launch
+    floor: an empty kernel of the same grid (``ipm_kernel.empty_kernel``)
+    as a CUDA graph of calls. Bound: bytes (each input read once, each
+    output written once, ``prep_bytes`` / ``predict_bytes`` /
+    ``correct_bytes``) over the HBM rate. Returns per-shape rows for each
     kernel."""
     import torch
-    from ldpc_tpu_torch.ops.ipm_kernel import (empty_kernel, ipm_step_len,
-                                               ipm_step_plan, ipm_update,
-                                               step_len_bytes, update_bytes)
-    from ldpc_tpu_torch.ops.ipm_ref import ipm_step_len_ref, ipm_update_ref
+    from ldpc_tpu_torch.ops.ipm_kernel import (correct_bytes, empty_kernel,
+                                               ipm_correct, ipm_predict,
+                                               ipm_prep, ipm_step_plan,
+                                               predict_bytes, prep_bytes)
+    from ldpc_tpu_torch.ops.ipm_ref import (Terms, ipm_correct_ref,
+                                            ipm_predict_ref, ipm_prep_ref)
 
-    def same(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    def clone(a):
+        if isinstance(a, Terms):
+            return Terms(*(u.clone() for u in a))
+        return (tuple(u.clone() for u in a) if isinstance(a, tuple)
+                else a.clone())
 
     def rotation(call, nbytes):
         """``call`` and copies of its tensors that fill twice the L2."""
-        def clone(a):
-            return (tuple(u.clone() for u in a) if isinstance(a, tuple)
-                    else a.clone())
         return [call] + [tuple(clone(a) for a in call)
                          for _ in range(-(-2 * L2_BYTES // nbytes))]
 
-    rows = {"ipm_step_len": [], "ipm_update": []}
+    rows = {"ipm_prep": [], "ipm_predict": [], "ipm_correct": []}
     dev = torch.device("cuda")
     for lanes, t, n in IPM_SHAPES:
-        v, d, ap, ad = _ipm_case(lanes, t, n, gen)
-        args = (v["s"], d["ds"], v["x"], d["dx"], v["w"], v["y"], d["dy"],
-                v["zl"], d["dzl"], v["zu"], d["dzu"])
-        state = tuple(v[k] for k in ("x", "w", "s", "y", "zl", "zu", "ax"))
-        dirs = tuple(d[k] for k in ("dx", "dy", "ds", "dzl", "dzu", "adx"))
-        got, want = ipm_step_len(*args), ipm_step_len_ref(*args)
-        got_u = ipm_update(tuple(u.clone() for u in state), dirs, ap, ad)
-        want_u = ipm_update_ref(state, dirs, ap, ad)
+        v, state, terms, nc = _ipm_case(lanes, t, n, gen)
+        dx, adx = v["dx"], v["adx"]
+        prep_args = (state, v["aty"], v["cs"], v["be"], nc)
+        want = (ipm_prep_ref(*prep_args),
+                ipm_predict_ref(state, terms, dx, adx, nc),
+                ipm_correct_ref(state, terms, dx, adx))
+        got = (ipm_prep(*prep_args), ipm_predict(state, terms, dx, adx, nc),
+               ipm_correct(clone(state), terms, dx, adx))
         torch.cuda.synchronize()
-        exact = (all(same(g, w) for g, w in zip(got, want)),
-                 all(same(g, w) for g, w in zip(got_u, want_u)))
-        special = (float(got[0][4]) == float(got[1][4]) == 1.0
-                   and float(got[0][6]) == float(got[1][6]) == 1.0
-                   and same(got_u[2][1], state[2][1].clamp_min(1e-12))
-                   and same(got_u[6][2], state[6][2])
-                   and bool(torch.isfinite(got_u[0]).all()))
-        plan = ipm_step_plan(lanes, t, n, all(
-            u.data_ptr() % 16 == 0 for u in (*args, *state, *dirs)))
+        exact, errs = _ipm_checks(v, state, terms, nc, got, want)
+        plan = ipm_step_plan(lanes, t, n, True)
         floor_ms = _graph_ms(lambda: empty_kernel(plan, dev),
                              [()] * WARM_CALLS)
         timed = {
-            "ipm_step_len": (ipm_step_len, ipm_step_len_ref, args,
-                             step_len_bytes(lanes, t, n)),
-            "ipm_update": (ipm_update, ipm_update_ref,
-                           (tuple(u.clone() for u in state), dirs, ap, ad),
-                           update_bytes(lanes, t, n))}
-        for (name, (kern, twin, call, nbytes)), ok in zip(timed.items(),
-                                                          exact):
+            "ipm_prep": (ipm_prep, ipm_prep_ref, prep_args, prep_bytes),
+            "ipm_predict": (ipm_predict, ipm_predict_ref,
+                            (state, terms, dx, adx, nc), predict_bytes),
+            "ipm_correct": (ipm_correct, ipm_correct_ref,
+                            (clone(state), terms, dx, adx), correct_bytes)}
+        for name, (kern, twin, call, nbytes) in timed.items():
+            nbytes = nbytes(lanes, t, n)
             cold = rotation(call, nbytes)
-            row = {"max_abs_err": 0.0, "library_ms": None, "t": t,
+            err, used = errs[name]
+            row = {"max_abs_err": err, "sum_bound_used": used,
+                   "library_ms": None, "t": t,
                    "n": n, "lanes": lanes, "plan": plan,
                    "floor_ms": floor_ms,
                    "shape": f"{lanes}x{t}x{n} f32 (rows x columns per lane)",
@@ -1444,17 +1585,21 @@ def _ipm_step_tiers(gen):
                    **_bound(nbytes, 0, F32_OPS_PER_S)}
             del cold
             print(f"[7 agc-kernels] {name} {row['shape']}, plan {plan}: "
-                  f"bit for bit with its twin {ok} (special lanes "
-                  f"{special}); device {row['ms']:.6f} ms cold, "
-                  f"{row['warm_ms']:.6f} ms warm (CUDA graphs; launch "
-                  f"floor {floor_ms:.6f}), {row['events_ms']:.5f} ms by "
-                  f"events; twin {row['plain_launches']} eager ops, "
+                  f"equal to its twin {exact[name]} (elementwise bit for "
+                  f"bit, sums within their bound, special lanes), "
+                  f"max |diff| {err:.3e}" + ("" if used is None else
+                                             f", the sum's {used:.3f} of "
+                                             f"its bound") + "; device "
+                  f"{row['ms']:.6f} ms cold, {row['warm_ms']:.6f} ms warm "
+                  f"(CUDA graphs; launch floor {floor_ms:.6f}), "
+                  f"{row['events_ms']:.5f} ms by events; twin "
+                  f"{row['plain_launches']} eager ops, "
                   f"{row['plain_ms']:.5f} ms device cold, "
                   f"{row['plain_events_ms']:.5f} ms by events; bound "
                   f"{row['bound_ms']:.6f} ms by {row['bound_by']} "
                   f"({row['bound_ms'] / row['ms']:.3f} of the cold time)",
                   flush=True)
-            if not (ok and special):
+            if not exact[name]:
                 raise AssertionError(f"{name} differs from its twin at "
                                      f"{row['shape']}")
             rows[name].append(row)
@@ -2005,16 +2150,30 @@ def phase_agc_path():
               f"{mode} {label} host {h_:.1f}, device {d_:.1f} (graphs "
               f"captured inside {c_})" for (mode, label), (h_, d_, c_)
               in per.items()), flush=True)
-    ratio = per["graph", "streamed"][0] / per["eager", "streamed"][0]
-    print(f"[8 agc path] host launches streamed, graph / eager: {ratio:.4f} "
-          f"(bound 0.1); IPM solve shapes captured "
+    graph_host = per["graph", "streamed"][0]
+    ratio = graph_host / per["eager", "streamed"][0]
+    print(f"[8 agc path] host launches per {AGC_LANES} trials streamed with "
+          f"graphs: {graph_host:.1f} (bound {AGC_GRAPH_HOST_LAUNCHES}), "
+          f"{ratio:.4f} of the eager run's; IPM solve shapes captured "
           f"{len(ipm_solver._graph_solves)}, peak device memory in the phase "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB "
           f"(reserved {torch.cuda.memory_reserved(dev) / 2 ** 30:.3f} GiB)",
           flush=True)
-    if not ratio <= 0.1:
-        raise AssertionError(f"graph host launches are {ratio:.4f} of the "
-                             f"eager run's")
+    if not graph_host <= AGC_GRAPH_HOST_LAUNCHES:
+        raise AssertionError(f"the graph run makes {graph_host:.1f} host "
+                             f"launches per {AGC_LANES} trials streamed")
+    # each captured solve shape's chunk graph: device operations a step
+    per_step = {f"{sv.c.shape[0]}x{sv.b.shape[1]}x{sv.n}":
+                sv.replays[2].args[0].nodes / sv.check_every
+                for sv in ipm_solver._graph_solves.values()
+                if sv.replays is not None and sv.n <= 320}
+    print(f"[8 agc path] chunk graphs' device operations per Newton step "
+          f"by solve shape (lanes x rows x columns): {per_step} (bound "
+          f"{IPM_STEP_NODES})", flush=True)
+    if not per_step or max(per_step.values()) > IPM_STEP_NODES:
+        raise AssertionError(f"a Newton step makes more than "
+                             f"{IPM_STEP_NODES} device operations: "
+                             f"{per_step}")
 
     llr = _alp_llrs(g, AGC_LANES, 43)
     out = {}
@@ -3417,10 +3576,12 @@ def main() -> int:
             ("chol_solve", "chol_fused.cu",
              "XLA block matvecs, ldpc_tpu/ops/pallas/chol_kernel.py "
              "blocked_cho_solve"),
-            ("ipm_step_len", "ipm_step.cu",
-             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267"),
-            ("ipm_update", "ipm_step.cu",
-             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:222-267")):
+            ("ipm_prep", "ipm_step.cu",
+             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:158-172"),
+            ("ipm_predict", "ipm_step.cu",
+             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:209-236"),
+            ("ipm_correct", "ipm_step.cu",
+             "XLA fusion, ldpc_tpu/ops/ipm_solver.py:237-267")):
         entry = {"name": name, "route": "cuda",
                  "source": f"ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
                  "launches": agc_launches.get(name, 0)}
@@ -3448,7 +3609,9 @@ def main() -> int:
             row = min(per_tier, key=lambda r: r["frac"])
             entry.update(
                 max_abs_err=max([r["max_abs_err"] for r in per_tier]
-                                + [agc_rows["gemv_ragged"][name]]),
+                                + [agc_rows["gemv_ragged"][name]]
+                                + ([agc_rows["gemv_tr_h02"]]
+                                   if name == "gemv_tr" else [])),
                 ms=row["cold_ms"], plain_ms=row["cold_plain_ms"],
                 library_ms=row["cold_library_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -3456,6 +3619,12 @@ def main() -> int:
                 host_us=agc_rows["host_us"][name][0],
                 library_host_us=agc_rows["host_us"][name][1],
                 shape=row["shape"] + ", cold L2, device time (CUDA graph)")
+            if name == "gemv_tr":
+                # two of a Newton step's three A^T y take the epilogue (its
+                # launches are among gemv_tr's): bit for bit at every shape
+                entry["newton_rhs"] = agc_rows["newton_rhs"]
+                entry["newton_rhs_max_abs_err"] = max(
+                    r["max_abs_err"] for r in agc_rows["newton_rhs"])
             # the path's matvec time: launches per tier x cold time per call
             on_path = sum(tiers[name].get(r["t"], 0) * r["cold_ms"]
                           for r in per_tier)
@@ -3463,8 +3632,10 @@ def main() -> int:
                   f"launches, ~{on_path:.3f} ms on the path at phase 7's "
                   f"cold times per tier", flush=True)
         elif name.startswith("ipm_"):
-            # bit for bit at every shape; the times at the path's deepest
-            # tier, device time (CUDA graph), the other shapes' beside them
+            # elementwise outputs bit for bit and the sums within their
+            # bound at every shape, the largest |diff| over the shapes; the
+            # times at the path's deepest tier, device time (CUDA graph),
+            # the other shapes' beside them
             row = next(r for r in agc_rows[name]
                        if (r["lanes"], r["t"], r["n"]) == (AGC_LANES,
                                                            AGC_CAP, 280))
@@ -3476,6 +3647,12 @@ def main() -> int:
                          plain_events_ms=row["plain_events_ms"],
                          plain_launches=row["plain_launches"],
                          tiers=agc_rows[name])
+            entry["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in agc_rows[name])
+            used = [r["sum_bound_used"] for r in agc_rows[name]
+                    if r["sum_bound_used"] is not None]
+            if used:
+                entry["sum_bound_used"] = max(used)
         else:
             row = _worst_and_last(agc_rows[name])
             entry.update({k: row[k] for k in keys}, shape=row["shape"])

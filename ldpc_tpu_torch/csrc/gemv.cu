@@ -5,9 +5,9 @@
 // ldpc_tpu/ops/pallas/gemv_kernel.py (called by `batched_gemv` and
 // `batched_gemv_t`): per lane, A x -> (T,) and A^T y -> (n,). The IPM
 // (ldpc_tpu_torch/ops/ipm_solver.py) makes three A^T y and two A x per Newton
-// step and one of each per chunk boundary, all on one slice per solve. The
-// plain PyTorch twins are `gemv_ref` and `gemv_t_ref` in
-// ldpc_tpu_torch/ops/gemv_ref.py.
+// step and one of each per chunk boundary, all on one slice per solve; two
+// of the A^T y take the epilogue -ea - A^T y + eb - ec. The plain PyTorch
+// twins are `gemv_ref` and `gemv_t_ref` in ldpc_tpu_torch/ops/gemv_ref.py.
 //
 // A is the packed copy `pack_rows` (ldpc_tpu_torch/ops/gemv_kernel.py) makes
 // once per solve: a contiguous (B, T, n_pad) int8 tensor, n_pad = n rounded
@@ -268,18 +268,22 @@ __device__ __forceinline__ long long block_of(long long it, long long items) {
   return ((it + 1) * gridDim.x + items - 1) / items - 1;
 }
 
-// out (B, n) = A^T y. A run is the chunks of one lane that one block takes
-// in a row; the block sums a run in registers. A run that is a whole lane
-// goes straight to out; another goes to part (B, chunks, n) at its first
-// chunk, and the block that ends a lane's last run (counted in done (B,),
-// which it sets back to 0) adds the lane's runs in chunk order into out.
+// out (B, n) = A^T y, or with `ea` given out = ((-ea - A^T y) + eb) - ec
+// (ea, eb, ec (B, n)), formed from the finished sum where it is written, each
+// operation rounded to nearest in that order. A run is the chunks of one lane
+// that one block takes in a row; the block sums a run in registers. A run
+// that is a whole lane goes straight to out; another goes to part (B, chunks,
+// n) at its first chunk, and the block that ends a lane's last run (counted
+// in done (B,), which it sets back to 0) adds the lane's runs in chunk order
+// into out.
 // Shared: the ring, then red [G][4][S] float4, then sy [2][rows] floats.
 __global__ void __launch_bounds__(kMaxThreads)
     gemv_tr_kernel(const int8_t* __restrict__ a8,
                    const float* __restrict__ y, float* __restrict__ part,
                    float* __restrict__ out, unsigned int* __restrict__ done,
-                   int t, int n, int n_pad, int rows, int chunks,
-                   long long items) {
+                   const float* __restrict__ ea, const float* __restrict__ eb,
+                   const float* __restrict__ ec, int t, int n, int n_pad,
+                   int rows, int chunks, long long items) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
   const int segs = n_pad / kSegBytes, groups = blockDim.x / segs;
@@ -303,6 +307,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   };
   if (tid < rows) sy[tid] = y_of(cur);
   __syncthreads();
+  // entry j of lane l of out from its finished sum
+  auto result = [&](long long l, int j, float sum) {
+    if (ea == nullptr) return sum;
+    const long long i = l * n + j;
+    return __fsub_rn(__fadd_rn(__fsub_rn(-ea[i], sum), eb[i]), ec[i]);
+  };
 
   float acc[kSegBytes];
 #pragma unroll
@@ -349,7 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int at = (((j >> 2) & 3) * segs + (j >> 4)) * 4 + (j & 3);
         float sum = red[at];
         for (int q = 1; q < groups; ++q) sum += red[q * n_pad + at];
-        pl[j] = sum;
+        pl[j] = whole ? result(cur.l, j, sum) : sum;
       }
       if (!whole) {
         __threadfence();
@@ -370,7 +380,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             float sum = __ldcg(lp + j);
             for (int b = b0 + 1; b <= b1; ++b)
               sum += __ldcg(lp + (range_begin(items, b) - lane0) * n + j);
-            out[cur.l * n + j] = sum;
+            out[cur.l * n + j] = result(cur.l, j, sum);
           }
         }
       }
@@ -516,12 +526,15 @@ int ldpc_gemv_fwd(const void* a8, const void* x, void* out, int batch, int t,
 // part scratch of batch x 2 ceil(t / chunk_rows) x n floats, out (batch, n),
 // done (batch,) int32
 // zeros, which the kernel leaves zero: one array per stream, as two calls at
-// once would share it. Returns the cudaError_t of the launch (0 on success).
-// Does not synchronise.
+// once would share it; ea, eb, ec (batch, n) or all three null: with them out
+// is -ea - A^T y + eb - ec. Returns the cudaError_t of the launch (0 on
+// success). Does not synchronise.
 int ldpc_gemv_tr(const void* a8, const void* y, void* part, void* out,
-                 void* done, int batch, int t, int n, int n_pad,
-                 void* stream) {
-  if (!shape_ok(batch, t, n, n_pad)) return cudaErrorInvalidValue;
+                 void* done, const void* ea, const void* eb, const void* ec,
+                 int batch, int t, int n, int n_pad, void* stream) {
+  if (!shape_ok(batch, t, n, n_pad) || (ea == nullptr) != (eb == nullptr) ||
+      (ea == nullptr) != (ec == nullptr))
+    return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   Config cfg;
   cudaError_t e = config_for(reinterpret_cast<const void*>(gemv_tr_kernel),
@@ -532,8 +545,9 @@ int ldpc_gemv_tr(const void* a8, const void* y, void* part, void* out,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a8), static_cast<const float*>(y),
       static_cast<float*>(part), static_cast<float*>(out),
-      static_cast<unsigned int*>(done), t, n, n_pad, p.rows, p.chunks,
-      p.items);
+      static_cast<unsigned int*>(done), static_cast<const float*>(ea),
+      static_cast<const float*>(eb), static_cast<const float*>(ec), t, n,
+      n_pad, p.rows, p.chunks, p.items);
   return cudaGetLastError();
 }
 

@@ -113,7 +113,8 @@ def load() -> ctypes.CDLL:
             lib.ldpc_pdhg_chunk_plan.restype = i
             lib.ldpc_gemv_fwd.argtypes = [p, p, p, i, i, i, i, p]
             lib.ldpc_gemv_fwd.restype = i
-            lib.ldpc_gemv_tr.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.ldpc_gemv_tr.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         p]
             lib.ldpc_gemv_tr.restype = i
             lib.ldpc_gemv_chunk_rows.argtypes = [i]
             lib.ldpc_gemv_chunk_rows.restype = i
@@ -131,12 +132,14 @@ def load() -> ctypes.CDLL:
             lib.ldpc_gf2_gauss.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.ldpc_gf2_gauss.restype = i
             f = ctypes.c_float
-            lib.ldpc_ipm_step_len.argtypes = [p] * 13 + [i, i, i, f, i, i,
-                                                         p]
-            lib.ldpc_ipm_step_len.restype = i
-            lib.ldpc_ipm_update.argtypes = [p] * 15 + [i, i, i, f, f, i, i,
-                                                       p]
-            lib.ldpc_ipm_update.restype = i
+            lib.ldpc_ipm_prep.argtypes = [p] * 22 + [i, i, i, f, f, i, i, p]
+            lib.ldpc_ipm_prep.restype = i
+            lib.ldpc_ipm_predict.argtypes = [p] * 24 + [i, i, i, f, f, i, i,
+                                                        p]
+            lib.ldpc_ipm_predict.restype = i
+            lib.ldpc_ipm_correct.argtypes = [p] * 18 + [i, i, i, f, f, f, i,
+                                                        i, p]
+            lib.ldpc_ipm_correct.restype = i
             lib.ldpc_ipm_empty.argtypes = [i, i, p]
             lib.ldpc_ipm_empty.restype = i
             lib.ldpc_admm_iterate.argtypes = [p] * 17 + [i] * 5 + [f] + [

@@ -22,8 +22,14 @@ a choice of its vector unit; int8 moves half of bf16's bytes. ``normal_build``
 runs on the tensor cores: it turns the int8 entries into bf16 (exact) and
 splits d into three bf16 planes that sum back to d exactly.
 
+:func:`gemv_t_launch` launches the A^T y kernel, optionally with its
+epilogue -ea - A^T y + eb - ec, for a caller that checked its inputs and
+keeps its own twin (the IPM's Newton right-hand side,
+:func:`.ipm_kernel.newton_rhs`).
+
 ``GEMV_LAUNCHES``, ``GEMV_T_LAUNCHES`` and ``NORMAL_LAUNCHES`` count each
-kernel's launches, so a run can show that its main path went through them;
+kernel's launches (the epilogue's among the A^T y ones), so a run can
+show that its main path went through them;
 ``GEMV_TIER_LAUNCHES``, ``GEMV_T_TIER_LAUNCHES`` and ``NORMAL_TIER_LAUNCHES``
 count them by row count T (declared with :func:`._launch.counter`).
 """
@@ -47,8 +53,8 @@ _GEMV = counter(__name__, "GEMV_LAUNCHES", "GEMV_TIER_LAUNCHES")
 _GEMV_T = counter(__name__, "GEMV_T_LAUNCHES", "GEMV_T_TIER_LAUNCHES")
 _NORMAL = counter(__name__, "NORMAL_LAUNCHES", "NORMAL_TIER_LAUNCHES")
 
-__all__ = ["batched_gemv", "batched_gemv_t", "normal_build", "pack_rows",
-           "reset_tier_counts"]
+__all__ = ["batched_gemv", "batched_gemv_t", "check_packed", "gemv_t_launch",
+           "normal_build", "pack_rows", "reset_tier_counts"]
 
 _chunk_rows: dict[int, int] = {}
 # per (device, stream): A^T y's per-lane run counts, zeros that the kernel
@@ -100,7 +106,9 @@ def pack_rows(a: torch.Tensor, out: torch.Tensor | None = None
     return a8, ok
 
 
-def _check_a8(fn: str, a8: torch.Tensor, n: int) -> tuple[int, int, int]:
+def check_packed(fn: str, a8: torch.Tensor, n: int) -> tuple[int, int, int]:
+    """(B, T, n_pad) of ``a8``, refused unless it is :func:`pack_rows`'s
+    copy of a slice with ``n`` columns."""
     if a8.dtype != torch.int8:
         raise TypeError(f"{fn}: a must be the int8 copy from pack_rows, got "
                         f"{a8.dtype}")
@@ -123,7 +131,7 @@ def batched_gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     x (B, n) float32 -> (B, T) float32."""
     cpu = on_cpu("batched_gemv", a)
     n = x.shape[-1]
-    bsz, t, n_pad = _check_a8("batched_gemv", a, n)
+    bsz, t, n_pad = check_packed("batched_gemv", a, n)
     expect("batched_gemv", "x", x, torch.float32, (bsz, n), a.device)
     if cpu:
         return gemv_ref(unpack_rows(a, n), x)
@@ -135,14 +143,14 @@ def batched_gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
-    """A^T y per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`
-    of a slice with ``n`` columns, y (B, T) float32 -> (B, n) float32."""
-    cpu = on_cpu("batched_gemv_t", a)
-    bsz, t, n_pad = _check_a8("batched_gemv_t", a, n)
-    expect("batched_gemv_t", "y", y, torch.float32, (bsz, t), a.device)
-    if cpu:
-        return gemv_t_ref(unpack_rows(a, n), y)
+def gemv_t_launch(fn: str, a: torch.Tensor, y: torch.Tensor, n: int,
+                  epilogue: tuple = (None, None, None)) -> torch.Tensor:
+    """One launch of the A^T y kernel on CUDA inputs that ``fn`` checked
+    (:func:`check_packed`, y (B, T) float32): A^T y, or with ``epilogue``
+    (ea, eb, ec), contiguous (B, n) float32, ((-ea - A^T y) + eb) - ec, each
+    operation rounded to nearest in that order. The caller keeps the
+    twin."""
+    bsz, t, n_pad = a.shape
     out = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
     if bsz:
         rows = _chunk_rows.get(n_pad)
@@ -152,10 +160,21 @@ def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
         # the kernel splits a lane into at most twice ceil(t / rows) chunks
         part = torch.empty((bsz, 2 * -(-t // rows), n), dtype=torch.float32,
                            device=a.device)
-        launch("batched_gemv_t", "ldpc_gemv_tr", a.device, a, y, part, out,
-               _run_counts(a.device, bsz), bsz, t, n, n_pad)
+        launch(fn, "ldpc_gemv_tr", a.device, a, y, part, out,
+               _run_counts(a.device, bsz), *epilogue, bsz, t, n, n_pad)
         _GEMV_T(t)
     return out
+
+
+def batched_gemv_t(a: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+    """A^T y per lane: a the (B, T, n_pad) int8 copy from :func:`pack_rows`
+    of a slice with ``n`` columns, y (B, T) float32 -> (B, n) float32."""
+    cpu = on_cpu("batched_gemv_t", a)
+    bsz, t, _ = check_packed("batched_gemv_t", a, n)
+    expect("batched_gemv_t", "y", y, torch.float32, (bsz, t), a.device)
+    if cpu:
+        return gemv_t_ref(unpack_rows(a, n), y)
+    return gemv_t_launch("batched_gemv_t", a, y, n)
 
 
 def normal_build(a: torch.Tensor, d: torch.Tensor, dxx: torch.Tensor,
@@ -165,7 +184,7 @@ def normal_build(a: torch.Tensor, d: torch.Tensor, dxx: torch.Tensor,
     and dxx (B, n) float32 -> (B, n, n) float32, both triangles written and
     exactly symmetric."""
     cpu = on_cpu("normal_build", a)
-    bsz, t, n_pad = _check_a8("normal_build", a, n)
+    bsz, t, n_pad = check_packed("normal_build", a, n)
     expect("normal_build", "d", d, torch.float32, (bsz, t), a.device)
     expect("normal_build", "dxx", dxx, torch.float32, (bsz, n), a.device)
     if cpu:

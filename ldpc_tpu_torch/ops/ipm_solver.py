@@ -16,21 +16,29 @@ and solves it twice (predictor and corrector). Backends:
 * ``matvec_backend``: ``"xla"`` (the JAX package's name, kept so
   configurations carry across) runs the plain twins of :mod:`.gemv_ref`;
   ``"kernel"`` runs :mod:`.gemv_kernel` (``csrc/gemv.cu`` and
-  ``csrc/normal_build.cu`` on a CUDA tensor, the same twins on a CPU tensor).
-  All three read an int8 copy of the rows made once per solve
-  (``pack_rows``), exact for entries in {-1, 0, 1}: the solve raises
-  ``ValueError`` on any other entry, read with the first chunk's host read;
+  ``csrc/normal_build.cu`` on a CUDA tensor, the same twins on a CPU tensor;
+  A^T y forms each direction's right-hand side in its epilogue,
+  :func:`.ipm_kernel.newton_rhs`). All three read an int8 copy of the rows
+  made once per solve (``pack_rows``), exact for entries in {-1, 0, 1}: the
+  solve raises ``ValueError`` on any other entry, read with the first
+  chunk's host read;
 * ``factor_backend``: ``"xla"`` is ``torch.linalg.cholesky_ex`` +
   ``cholesky_solve`` with the NaN rule of :func:`.chol_ref.cholesky_nan`;
-  ``"blocked"`` is :mod:`.chol` (its diagonal step ``csrc/chol_diag_inv.cu``
-  on CUDA);
+  ``"blocked"`` is :mod:`.chol` (on CUDA the fused factor and solves of
+  ``csrc/chol_fused.cu`` up to n = 320, else the chain around
+  ``csrc/chol_diag_inv.cu``);
 * ``"auto"`` is ``"kernel"``/``"blocked"`` on CUDA and ``"xla"``/``"xla"``
   on the CPU.
 
-The step lengths and the masked update of every Newton step are
-:mod:`.ipm_kernel` (``csrc/ipm_step.cu`` on CUDA, the twins of
-:mod:`.ipm_ref` on the CPU), whatever the backends: XLA fuses that work in
-JAX.
+The rest of a Newton step, its elementwise and per-lane work (residuals,
+mu, scalings, targets, directions, step lengths, mu_aff, sigma, the masked
+update), is :mod:`.ipm_kernel`'s prep, predict and correct
+(``csrc/ipm_step.cu`` on CUDA, the twins of :mod:`.ipm_ref` on the CPU),
+whatever the backends: XLA fuses that work in JAX. On CUDA with the kernel
+backends and n <= 320 a Newton step is twelve launches and no PyTorch
+operation: A^T y, prep, the normal matrix, the factor, and for each of the
+predictor and the corrector the right-hand side, the solve, A dx and
+predict or correct.
 
 Precision: the late Newton systems need full float32 products (the diagonal
 entries span about 1e+-10); TF32 keeps three decimal digits and stalls the
@@ -90,10 +98,10 @@ from ..utils.profiling import span, spanned
 from . import gemv_kernel, ipm_graph
 from .chol import blocked_cho_solve, blocked_cholesky
 from .chol_ref import cholesky_nan
-from .gemv_kernel import (batched_gemv, batched_gemv_t, normal_build,
-                          pack_rows)
+from .gemv_kernel import batched_gemv, batched_gemv_t, normal_build, pack_rows
 from .gemv_ref import PAD, gemv_ref, gemv_t_ref, normal_ref
-from .ipm_kernel import ipm_step_len, ipm_update
+from .ipm_kernel import ipm_correct, ipm_predict, ipm_prep, newton_rhs
+from .ipm_ref import newton_rhs_ref, residuals_ref
 from .lp_solver import require_full_f32
 
 __all__ = ["COUNTS", "FACTOR_BACKENDS", "MATVEC_BACKENDS", "ipm_box_lp",
@@ -117,6 +125,7 @@ class _Lp:
     mv: Callable            # A x
     mvt: Callable           # A^T y
     normal: Callable        # A^T diag(d) A + diag(dxx) + delta I
+    rhs: Callable           # -rd - A^T v + rl - ru
     blocked: bool           # factor_backend "blocked"
     cs: torch.Tensor        # (B, n) objective over its per-lane scale
     be: torch.Tensor        # (B, R) rhs, 2n on all-zero rows
@@ -142,8 +151,9 @@ def _store(dsts, srcs) -> None:
 
 
 def _products(rows, n: int, delta: float, kernel: bool):
-    """(A x, A^T y, normal matrix) on ``rows``: the packed int8 copy with
-    the kernel matvecs, else the float32 rows with their twins."""
+    """(A x, A^T y, normal matrix, a Newton direction's right-hand side) on
+    ``rows``: the packed int8 copy with the kernel matvecs, else the
+    float32 rows with their twins."""
     if kernel:
         def mv(v):
             return batched_gemv(rows, v.contiguous())
@@ -154,6 +164,9 @@ def _products(rows, n: int, delta: float, kernel: bool):
         def normal(d, dxx):
             return normal_build(rows, d.contiguous(), dxx.contiguous(),
                                 delta, n)
+
+        def rhs(v, rd, rl, ru):
+            return newton_rhs(rows, v.contiguous(), rd, rl, ru, n)
     else:
         def mv(v):
             return gemv_ref(rows, v)
@@ -163,7 +176,10 @@ def _products(rows, n: int, delta: float, kernel: bool):
 
         def normal(d, dxx):
             return normal_ref(rows, d, dxx, delta)
-    return mv, mvt, normal
+
+        def rhs(v, rd, rl, ru):
+            return newton_rhs_ref(rd, gemv_t_ref(rows, v), rl, ru)
+    return mv, mvt, normal, rhs
 
 
 def _scaled(c, b, rows, n: int):
@@ -200,24 +216,16 @@ def _start(lp: _Lp, x0, y0, warm_shift: float):
     return tuple(v.contiguous() for v in (x, w, s, y, zl, zu, ax))
 
 
-def _residuals(lp: _Lp, ax, x, w, s, y, zl, zu):
-    rp = ax + s - lp.be                                          # (B, R)
-    rd = lp.cs + lp.mvt(y) - zl + zu                             # (B, n)
-    mu = ((y * s).sum(dim=-1) + (zl * x).sum(dim=-1)
-          + (zu * w).sum(dim=-1)) / lp.n_compl                   # (B,)
-    return rp, rd, mu
-
-
 def _newton(lp: _Lp, state):
     """One predictor-corrector step; a lane whose direction is not finite
     (its factorization broke down) keeps its current, still finite,
-    iterate."""
-    x, w, s, y, zl, zu, ax = state
-    rp, rd, mu = _residuals(lp, ax, x, w, s, y, zl, zu)
-    dy_s = (y / s).clamp(1e-10, 1e10)                            # (B, R)
-    dxl = (zl / x).clamp(1e-10, 1e10)
-    dxu = (zu / w).clamp(1e-10, 1e10)
-    m = lp.normal(dy_s, dxl + dxu)
+    iterate. Its elementwise and per-lane work is three calls of
+    :mod:`.ipm_kernel` (one kernel each on CUDA) around the matvecs, the
+    normal matrix, the factor and the two solves: on CUDA with the kernel
+    backends twelve launches."""
+    # residuals, mu, scalings and the predictor's targets (sigma = 0)
+    terms = ipm_prep(state, lp.mvt(state[3]), lp.cs, lp.be, lp.n_compl)
+    m = lp.normal(terms.dy_s, terms.dxx)
     if lp.blocked:
         fac = blocked_cholesky(m)
 
@@ -229,40 +237,16 @@ def _newton(lp: _Lp, state):
         def m_solve(r):
             return torch.cholesky_solve(r.unsqueeze(-1), chol).squeeze(-1)
 
-    def solve_dir(sig_mu, extra_y, extra_l, extra_u):
-        """Newton direction for the complementarity targets
-        y s -> sig_mu - extra_y (and so on); returns
-        (dx, dy, ds, dzl, dzu, A dx)."""
-        ry = (sig_mu[:, None] - extra_y) / s - y
-        rl = (sig_mu[:, None] - extra_l) / x - zl
-        ru = (sig_mu[:, None] - extra_u) / w - zu
-        rhs = -rd - lp.mvt(ry + dy_s * rp) + rl - ru
-        dx = m_solve(rhs).contiguous()
-        adx = lp.mv(dx)
-        ds = -rp - adx
-        dy = ry - dy_s * ds
-        dzl = rl - dxl * dx
-        dzu = ru + dxu * dx
-        return dx, dy, ds, dzl, dzu, adx
+    def direction(terms):
+        """(dx, A dx) of the direction for ``terms``' targets."""
+        dx = m_solve(lp.rhs(terms.v, terms.rd, terms.rl,
+                            terms.ru)).contiguous()
+        return dx, lp.mv(dx)
 
-    zero_r, zero_n = torch.zeros_like(y), torch.zeros_like(x)
-    # predictor (affine scaling, sigma = 0)
-    dxa, dya, dsa, dzla, dzua, _ = solve_dir(
-        torch.zeros((x.shape[0],), dtype=_F32, device=x.device), zero_r,
-        zero_n, zero_n)
-    ap, ad = ipm_step_len(s, dsa, x, dxa, w, y, dya, zl, dzla, zu, dzua)
-    ap_, ad_ = ap[:, None], ad[:, None]
-    mu_aff = (((y + ad_ * dya) * (s + ap_ * dsa)).sum(dim=-1)
-              + ((zl + ad_ * dzla) * (x + ap_ * dxa)).sum(dim=-1)
-              + ((zu + ad_ * dzua) * (w - ap_ * dxa)).sum(dim=-1)
-              ) / lp.n_compl
-    ratio = mu_aff / mu.clamp_min(1e-12)
-    sigma = (ratio * (ratio * ratio)).clamp(0.0, 1.0)
-    # corrector (reuses the factorization)
-    dx, dy, ds, dzl, dzu, adx = solve_dir(
-        sigma * mu, dya * dsa, dzla * dxa, -dzua * dxa)
-    ap, ad = ipm_step_len(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu)
-    return ipm_update(state, (dx, dy, ds, dzl, dzu, adx), ap, ad)
+    # predictor; its step lengths, mu_aff, sigma and the corrector's targets
+    terms = ipm_predict(state, terms, *direction(terms), lp.n_compl)[0]
+    # corrector (reuses the factorization) and the masked update
+    return ipm_correct(state, terms, *direction(terms))[0]
 
 
 def _boundary(lp: _Lp, state, best_err, stall_cnt):
@@ -271,9 +255,9 @@ def _boundary(lp: _Lp, state, best_err, stall_cnt):
     and the flag whether any lane still has to step. "Improving" is judged
     against the lane's running minimum, and a lane that has stalled twice
     stays stalled (JAX ipm_solver.py:300-316)."""
-    x, w, s, y, zl, zu, _ = state
-    ax = lp.mv(x)
-    rp, rd, mu = _residuals(lp, ax, x, w, s, y, zl, zu)
+    ax = lp.mv(state[0])
+    rp, rd, mu = residuals_ref(state[:6] + (ax,), lp.mvt(state[3]), lp.cs,
+                               lp.be, lp.n_compl)
     err = torch.maximum(
         mu, torch.maximum((rp.abs() * lp.row_on).amax(dim=-1),
                           rd.abs().amax(dim=-1)))

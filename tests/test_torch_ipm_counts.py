@@ -1,6 +1,7 @@
 """The IPM solver's counters and spans (``ops/ipm_solver.py``): ``COUNTS``
 (``solves``, ``chunks``, ``reads.poll``) and the spans ``lp.capture`` and
-``lp.copy_in`` of the graph path.
+``lp.copy_in`` of the graph path, and the Newton step's three kernels
+(``ops/ipm_kernel.py``), once each a Newton step.
 
 On the CPU, eager: one ``ipm_box_lp`` call moves ``solves`` by 1, ``chunks``
 by the Newton-step chunks its loop ran and ``reads.poll`` by the loop's
@@ -120,6 +121,31 @@ def test_one_eager_solve_counts_its_chunks_and_reads(monkeypatch, backends,
     assert not spans["lp.capture"] and not spans["lp.copy_in"]
 
 
+@pytest.mark.parametrize("backends", [("xla", "xla"), ("kernel", "blocked")])
+@pytest.mark.parametrize("iters,every", [(40, 5), (10, 5), (7, 2)])
+def test_each_step_kernel_runs_once_a_newton_step(monkeypatch, backends,
+                                                  iters, every):
+    """The Newton step calls each of the three step wrappers
+    (``ops/ipm_kernel.py``: one kernel each on the card) once, so each runs
+    ``chunks`` x ``check_every`` times a solve."""
+    c, a, b = _lp(6, 4, 40, 48, 30)
+    calls = Counter()
+    for name in ("ipm_prep", "ipm_predict", "ipm_correct"):
+        inner = getattr(ipm_solver, name)
+
+        def counted(*args, _inner=inner, _name=name):
+            calls[_name] += 1
+            return _inner(*args)
+        monkeypatch.setattr(ipm_solver, name, counted)
+    before = Counter(COUNTS)
+    ipm_box_lp(c, a, b, iters=iters, check_every=every,
+               matvec_backend=backends[0], factor_backend=backends[1])
+    steps = _grown(before)["chunks"] * every
+    assert steps >= every
+    assert calls == dict.fromkeys(("ipm_prep", "ipm_predict",
+                                   "ipm_correct"), steps)
+
+
 def test_a_solve_that_need_not_step_reads_once():
     c, a, b = _lp(4, 3, 20, 24, 10)
     x, y, _ = ipm_box_lp(c, a, b, iters=40)
@@ -233,6 +259,34 @@ def test_graph_solve_counts_as_the_eager_one_on_card(warm):
     assert f_spans["lp.copy_in"] == s_spans["lp.copy_in"] == 1
     assert e_spans["lp.poll"] == f_spans["lp.poll"] == s_spans["lp.poll"] \
         == eager["reads.poll"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [False, True])
+def test_the_step_counters_advance_once_a_newton_step_on_card(warm):
+    """``ipm_kernel``'s three launch counters each advance once a Newton
+    step (``chunks`` x ``check_every``), eager and replayed alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from ldpc_tpu_torch.ops import ipm_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    # a shape of its own, so that its first graph solve here captures
+    c, a, b = _lp(13 + warm, 9, 88, 104, 60, dev)
+    kw = dict(iters=40, tol=1e-5)
+    if warm:
+        x, y, _ = ipm_box_lp(c, a, b, graphs=False, iters=10)
+        kw.update(x0=(x + 0.05).clamp(0.0, 1.0), y0=y)
+    names = ("PREP_LAUNCHES", "PREDICT_LAUNCHES", "CORRECT_LAUNCHES")
+    for graphs in (False, True, True):
+        before = Counter(COUNTS)
+        launches = [getattr(ipm_kernel, k) for k in names]
+        ipm_box_lp(c, a, b, graphs=graphs, **kw)
+        torch.cuda.synchronize()
+        steps = _grown(before)["chunks"] * 5
+        assert steps >= 5
+        assert [getattr(ipm_kernel, k) - n for k, n in
+                zip(names, launches)] == [steps] * 3
 
 
 @pytest.mark.gpu

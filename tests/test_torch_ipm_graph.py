@@ -1,17 +1,23 @@
-"""The IPM step's two hand-written kernels (``csrc/ipm_step.cu``) and the
-solve as CUDA graphs (``ops/ipm_graph.py``) in the PyTorch port.
+"""The IPM Newton step's hand-written kernels (``csrc/ipm_step.cu``: the
+prep, the predict and the correct; ``csrc/gemv.cu``'s right-hand-side
+epilogue) and the solve as CUDA graphs (``ops/ipm_graph.py``) in the
+PyTorch port.
 
-On the CPU: the kernels' twins (``ops/ipm_ref.py``) equal the JAX package's
-work bit for bit on numpy inputs from a seed: the step lengths against
+On the CPU: the step lengths' and the update's twins (``ops/ipm_ref.py``,
+inside the predict's and the correct's) equal the JAX package's work bit
+for bit on numpy inputs from a seed: the step lengths against
 ``ldpc_tpu.ops.ipm_solver._pos_step`` composed as at ``:222-227``, the
 masked update against ``:247-267`` written out in ``jax.numpy`` (the update
 lives inside JAX's solver; each op runs on its own, as the port's eager ops
 do, so no product is fused into an add). Cases: NaN and inf directions,
 all-positive directions (step 1), ties, steps past the box (clamps and
-floors). The wrappers run the twins on a CPU tensor, the eager solve
-(``graphs=False``) is the default one there, and ``graphs=True`` on a CPU
-tensor raises. The refactored eager solve's tolerances against JAX stay
-``tests/test_torch_ipm.py``'s.
+floors). The solve through the three step wrappers (their twins on the
+CPU) equals, bit for bit, the solve whose Newton step is the eager glue the
+kernels replaced, written out here, cold, warm and masked, on both
+backends. The wrappers run the twins on a CPU tensor and count nothing,
+the eager solve (``graphs=False``) is the default one there, and
+``graphs=True`` on a CPU tensor raises. The eager solve's tolerances
+against JAX stay ``tests/test_torch_ipm.py``'s.
 
 The kernels' launch plan (``ipm_step_plan``) on the CPU: legal at every
 shape of AGC-ALP's tiers, H02's, ragged and wide ones, for 1 to 256 lanes,
@@ -20,15 +26,21 @@ arithmetic (emulated here), refusing an empty shape with ValueError. The
 twins also equal JAX at a ragged T = 130, n = 283.
 
 On the card (marked ``gpu``; ``python -m pytest tests/test_torch_ipm_graph.py
--m gpu --noconftest``): the kernels equal the twins bit for bit at
-T = 128, 640 and 1408, B = 128, n = 280 with the same special lanes, at
-ragged, unaligned (width 1), H02 (T = 2176, n = 640), two-pass (T = 8192)
-and B = 1, 3 and 256 shapes, and in layouts the plan does not pick (fewer
-threads and several passes, more threads, width 1 on aligned arrays);
-both kernels captured in a CUDA graph replay to the eager launches' bits;
-the graph solve equals the eager one bit for bit in x, y and err for cold,
-warm and masked solves at those tiers, twice in a row; and the launch
-counters after a graph solve equal the eager solve's.
+-m gpu --noconftest``): the three kernels, one launch each, against their
+twins on the same inputs, every elementwise output bit for bit and mu and
+mu_aff within (T + 2n) 2^-23 sum |terms| (the corrector's targets against
+the twin given the kernel's mu_aff), a lane with a non-finite dx or dy
+keeping its iterate, at AGC-ALP's eight tiers (T = 128 ... 1408, B = 128,
+n = 280) with the special lanes, at ragged, unaligned (width 1), H02
+(T = 2176, n = 640), two-pass (T = 8192), odd (B = 127) and B = 1, 3 and
+256 shapes, and in layouts the plan does not pick (fewer threads and
+several passes, more threads, width 1 on aligned arrays); illegal layouts
+refused; the three captured in a CUDA graph replay to the eager launches'
+bits; the right-hand side's epilogue equals its twin on the kernel's own
+A^T v; a Newton step makes twelve launches and no PyTorch device
+operation; the graph solve equals the eager one bit for bit in x, y and err
+for cold, warm and masked solves at three tiers, twice in a row; and the
+launch counters after a graph solve equal the eager solve's.
 """
 from collections import Counter
 
@@ -37,13 +49,21 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.decoders.agc_alp import AGCALPDecoder
-from ldpc_tpu_torch.ops import _launch, chol_kernel, ipm_graph, ipm_kernel
+from ldpc_tpu_torch.ops import (_launch, chol_kernel, gemv_kernel, ipm_graph,
+                                ipm_kernel, ipm_solver)
+from ldpc_tpu_torch.ops.chol import blocked_cho_solve, blocked_cholesky
+from ldpc_tpu_torch.ops.chol_ref import cholesky_nan
 from ldpc_tpu_torch.ops.gemv_kernel import pack_rows
 from ldpc_tpu_torch.ops.ipm_kernel import (MAX_THREADS, PER_THREAD,
-                                           ipm_step_len, ipm_step_plan,
-                                           ipm_update)
-from ldpc_tpu_torch.ops.ipm_ref import (FLOOR, ipm_step_len_ref,
-                                        ipm_update_ref)
+                                           ipm_correct, ipm_predict,
+                                           ipm_prep, ipm_step_plan)
+from ldpc_tpu_torch.ops.ipm_ref import (DIAG_HI, DIAG_LO, FLOOR, FRAC,
+                                        MU_FLOOR, Terms,
+                                        corrector_targets_ref,
+                                        directions_ref, ipm_correct_ref,
+                                        ipm_predict_ref, ipm_prep_ref,
+                                        ipm_step_len_ref, ipm_update_ref,
+                                        newton_rhs_ref)
 from ldpc_tpu_torch.ops.ipm_solver import ipm_box_lp
 
 try:  # the card's host has no JAX; only the gpu cases run there
@@ -284,17 +304,170 @@ def test_ipm_step_plan_refuses(shape):
         ipm_step_plan(*shape, True)
 
 
+def _terms(v):
+    """The :class:`Terms` a predict or a correct reads, from ``v``'s
+    arrays (the prep's outputs it does not read left as they are)."""
+    return Terms(*(v[k] for k in Terms._fields))
+
+
+def _fused_inputs(seed, bsz, t, n, case):
+    """A Newton step's inputs, float32 from a seed: the iterate (interior),
+    the prep's A^T y, scaled objective and rhs, a direction's terms, mu, its
+    dx and A dx. Lane 1 is the case's lane: NaN in dx (``nan_dx``); NaN in
+    A dx, so in ds and dy, NaN in A^T y and 0 / 0 in the scalings
+    (``nan_dy``); infinite directions (``inf``); directions along which
+    nothing bounds a step, so both are 1 (``positive``); one ratio in many
+    places (``ties``); scalings past their clamp and mu at 0, so sigma's
+    floor and clamp act, and steps past the box (``clamp``). Lane 2's
+    directions are so small that both steps clamp to 1."""
+    rng = np.random.default_rng(seed)
+
+    def pos(w, lo=1e-3, hi=5.0):
+        return rng.uniform(lo, hi, (bsz, w)).astype(np.float32)
+
+    def nrm(w, sd=2.0):
+        return rng.normal(0.0, sd, (bsz, w)).astype(np.float32)
+
+    v = {"x": pos(n, 1e-3, 1.0 - 1e-3), "s": pos(t), "y": pos(t),
+         "zl": pos(n), "zu": pos(n), "ax": nrm(t, 3.0), "aty": nrm(n),
+         "cs": nrm(n), "be": nrm(t, 3.0), "rp": nrm(t), "rd": nrm(n),
+         "dy_s": pos(t), "dxl": pos(n), "dxu": pos(n), "ry": nrm(t),
+         "rl": nrm(n), "ru": nrm(n), "dx": nrm(n), "adx": nrm(t),
+         "mu": pos(1)[:, 0]}
+    v["dxx"], v["v"] = v["dxl"] + v["dxu"], nrm(t)
+    for k in ("rp", "ry", "rl", "ru", "dx", "adx"):
+        v[k][2] *= np.float32(1e-5)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    if case == "nan_dx":
+        v["dx"][1, 3] = nan
+    elif case == "nan_dy":
+        v["adx"][1, -1] = nan
+        v["aty"][1, 0] = nan
+        v["y"][1, 1] = v["s"][1, 1] = 0.0
+    elif case == "inf":
+        v["dx"][1, 1] = -inf
+        v["rp"][1, 2] = inf
+        v["ry"][1, 0] = inf
+        v["rl"][1, 0] = inf
+    elif case == "positive":
+        v["rp"][1] = -np.abs(v["rp"][1])
+        for k in ("ry", "rl", "ru"):
+            v[k][1] = np.abs(v[k][1])
+        for k in ("adx", "dy_s", "dxl", "dxu", "dx"):
+            v[k][1] = 0.0
+    elif case == "ties":
+        v["s"][1, ::3] = v["y"][1, ::3] = 0.75
+        v["rp"][1, ::3], v["adx"][1, ::3] = 1.5, 0.0
+        v["dy_s"][1, ::3], v["ry"][1, ::3] = 0.0, -1.5
+        v["x"][1, ::4], v["dx"][1, ::4] = 0.25, -0.5
+        v["zl"][1, ::5], v["dxl"][1, ::5], v["rl"][1, ::5] = 1.0, 0.0, -2.0
+    elif case == "clamp":
+        v["s"][1, :5] = v["zl"][1, :5] = 1e-12
+        v["mu"][1] = 0.0
+        v["dx"][1] = rng.choice([-4.0, 4.0], n)
+    v["w"] = (np.float32(1.0) - v["x"]).astype(np.float32)
+    return v
+
+
+def _fstate(v):
+    return tuple(v[k] for k in ("x", "w", "s", "y", "zl", "zu", "ax"))
+
+
 def test_wrappers_run_the_twins_on_cpu():
-    v, d, ap, ad = _step_inputs(9, 4, 16, 12, "random")
-    before = (ipm_kernel.STEP_LEN_LAUNCHES, ipm_kernel.UPDATE_LAUNCHES)
-    got = ipm_step_len(*_t(_step_args(v, d)))
-    want = ipm_step_len_ref(*_t(_step_args(v, d)))
+    v = {k: torch.from_numpy(a) for k, a in
+         _fused_inputs(9, 4, 16, 12, "random").items()}
+    nc = torch.tensor(float(16 + 2 * 12))
+    state, terms = _fstate(v), _terms(v)
+    before = _launch.snapshot()
+    got = ipm_prep(state, v["aty"], v["cs"], v["be"], nc)
+    want = ipm_prep_ref(state, v["aty"], v["cs"], v["be"], nc)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    st = ipm_update(_t(_state(v)), _t(_dirs(d)), *_t((ap, ad)))
-    ref = ipm_update_ref(_t(_state(v)), _t(_dirs(d)), *_t((ap, ad)))
-    assert all(torch.equal(g, w) for g, w in zip(st, ref))
-    assert (ipm_kernel.STEP_LEN_LAUNCHES,
-            ipm_kernel.UPDATE_LAUNCHES) == before
+    got = ipm_predict(state, terms, v["dx"], v["adx"], nc)
+    want = ipm_predict_ref(state, terms, v["dx"], v["adx"], nc)
+    assert all(torch.equal(g, w) for g, w in zip((*got[0], *got[1:]),
+                                                 (*want[0], *want[1:])))
+    got = ipm_correct(state, terms, v["dx"], v["adx"])
+    want = ipm_correct_ref(state, terms, v["dx"], v["adx"])
+    assert all(torch.equal(g, w) for g, w in zip((*got[0], *got[1:]),
+                                                 (*want[0], *want[1:])))
+    assert _launch.since(before) == []
+
+
+def _glue_newton(lp, state):
+    """The Newton step as the port ran it before its glue became the three
+    kernels (eager ops around the step lengths' and the update's twins),
+    verbatim."""
+    x, w, s, y, zl, zu, ax = state
+    rp = ax + s - lp.be
+    rd = lp.cs + lp.mvt(y) - zl + zu
+    mu = ((y * s).sum(dim=-1) + (zl * x).sum(dim=-1)
+          + (zu * w).sum(dim=-1)) / lp.n_compl
+    dy_s = (y / s).clamp(1e-10, 1e10)
+    dxl = (zl / x).clamp(1e-10, 1e10)
+    dxu = (zu / w).clamp(1e-10, 1e10)
+    m = lp.normal(dy_s, dxl + dxu)
+    if lp.blocked:
+        fac = blocked_cholesky(m)
+
+        def m_solve(r):
+            return blocked_cho_solve(fac, r)
+    else:
+        chol = cholesky_nan(m)
+
+        def m_solve(r):
+            return torch.cholesky_solve(r.unsqueeze(-1), chol).squeeze(-1)
+
+    def solve_dir(sig_mu, extra_y, extra_l, extra_u):
+        ry = (sig_mu[:, None] - extra_y) / s - y
+        rl = (sig_mu[:, None] - extra_l) / x - zl
+        ru = (sig_mu[:, None] - extra_u) / w - zu
+        rhs = -rd - lp.mvt(ry + dy_s * rp) + rl - ru
+        dx = m_solve(rhs).contiguous()
+        adx = lp.mv(dx)
+        ds = -rp - adx
+        dy = ry - dy_s * ds
+        dzl = rl - dxl * dx
+        dzu = ru + dxu * dx
+        return dx, dy, ds, dzl, dzu, adx
+
+    zero_r, zero_n = torch.zeros_like(y), torch.zeros_like(x)
+    dxa, dya, dsa, dzla, dzua, _ = solve_dir(
+        torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device),
+        zero_r, zero_n, zero_n)
+    ap, ad = ipm_step_len_ref(s, dsa, x, dxa, w, y, dya, zl, dzla, zu, dzua)
+    ap_, ad_ = ap[:, None], ad[:, None]
+    mu_aff = (((y + ad_ * dya) * (s + ap_ * dsa)).sum(dim=-1)
+              + ((zl + ad_ * dzla) * (x + ap_ * dxa)).sum(dim=-1)
+              + ((zu + ad_ * dzua) * (w - ap_ * dxa)).sum(dim=-1)
+              ) / lp.n_compl
+    ratio = mu_aff / mu.clamp_min(1e-12)
+    sigma = (ratio * (ratio * ratio)).clamp(0.0, 1.0)
+    dx, dy, ds, dzl, dzu, adx = solve_dir(
+        sigma * mu, dya * dsa, dzla * dxa, -dzua * dxa)
+    ap, ad = ipm_step_len_ref(s, ds, x, dx, w, y, dy, zl, dzl, zu, dzu)
+    return ipm_update_ref(state, (dx, dy, ds, dzl, dzu, adx), ap, ad)
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm", "masked"])
+@pytest.mark.parametrize("backends", [("xla", "xla"), ("kernel", "blocked")])
+def test_the_step_kernels_twins_give_the_eager_glues_bits(monkeypatch,
+                                                         backends, mode):
+    """On the CPU the solve through the three step wrappers (their twins)
+    equals, bit for bit, the solve whose Newton step is the eager glue the
+    kernels replaced."""
+    c, a, b = _lp(21, 5, 36, 44, 30)
+    kw = dict(iters=40, tol=1e-5, matvec_backend=backends[0],
+              factor_backend=backends[1])
+    if mode == "warm":
+        x, y, _ = ipm_box_lp(c, a, b, iters=10)
+        kw.update(x0=(x + 0.05).clamp(0.0, 1.0), y0=y)
+    elif mode == "masked":
+        kw["active"] = torch.arange(5) % 2 == 0
+    got = ipm_box_lp(c, a, b, **kw)
+    monkeypatch.setattr(ipm_solver, "_newton", _glue_newton)
+    want = ipm_box_lp(c, a, b, **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(w))
 
 
 def _lp(seed, bsz, n, t, active_rows, dev="cpu"):
@@ -390,11 +563,10 @@ def cuda_device():
 
 
 def _card_inputs(dev, bsz, t, n, case, offset=0):
-    """(step-length arguments, state, dirs, (ap, ad)) on the card: B lanes
-    of ``_step_inputs`` (B = 1: the case's lane 1 of a 3-lane draw, alone),
-    each (B, T) or (B, n) array a contiguous view ``offset`` floats into a
-    buffer of its own (offset 1: not 16-byte aligned)."""
-    v, d, ap, ad = _step_inputs(11, max(bsz, 3), t, n, case)
+    """``_fused_inputs`` on the card (B = 1: the case's lane 1 of a 3-lane
+    draw, alone), each array a contiguous view ``offset`` floats into a
+    buffer of its own (offset 1: not 16-byte aligned), and n_compl."""
+    v = _fused_inputs(11, max(bsz, 3), t, n, case)
     lanes = slice(1, 2) if bsz == 1 else slice(0, bsz)
 
     def put(a):
@@ -404,64 +576,138 @@ def _card_inputs(dev, bsz, t, n, case, offset=0):
         view.copy_(torch.from_numpy(a))
         return view
 
-    v = {k: put(a) for k, a in v.items()}
-    d = {k: put(a) for k, a in d.items()}
-    return _step_args(v, d), _state(v), _dirs(d), (put(ap), put(ad))
+    return ({k: put(a) for k, a in v.items()},
+            torch.full((), float(t + 2 * n), device=dev))
 
 
-def _step_len_by(plan, args, ap, ad):
-    """One step-length launch by ``plan``, not the wrapper's."""
-    (bsz, t), n = args[0].shape, args[2].shape[1]
-    _launch.launch("ipm_step_len", "ldpc_ipm_step_len", ap.device, *args, ap,
-                   ad, bsz, t, n, 0.995, plan["vec"], plan["threads"])
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def _update_by(plan, state, dirs, ap, ad):
-    """One update launch by ``plan``, in place."""
-    (bsz, t), n = state[2].shape, state[0].shape[1]
-    _launch.launch("ipm_update", "ldpc_ipm_update", ap.device, *state, *dirs,
-                   ap, ad, bsz, t, n, FLOOR, 1.0 - FLOOR, plan["vec"],
+def _prep_by(plan, state, v, nc):
+    """One prep launch by ``plan``, not the wrapper's."""
+    (bsz, t), n, dev = state[2].shape, state[0].shape[1], nc.device
+    out = Terms(*(_empty(dev, bsz) if k == "mu" else
+                  _empty(dev, bsz, t if k in ("rp", "dy_s", "ry", "v")
+                         else n) for k in Terms._fields))
+    _launch.launch("ipm_prep", "ldpc_ipm_prep", dev, *state, v["aty"],
+                   v["cs"], v["be"], nc, *out, bsz, t, n, DIAG_LO, DIAG_HI,
+                   plan["vec"], plan["threads"])
+    return out
+
+
+def _predict_by(plan, state, terms, dx, adx, nc):
+    """One predict launch by ``plan``."""
+    (bsz, t), n, dev = state[2].shape, state[0].shape[1], nc.device
+    ap, ad, mu_aff = _empty(dev, bsz), _empty(dev, bsz), _empty(dev, bsz)
+    ry, v = _empty(dev, bsz, t), _empty(dev, bsz, t)
+    rl, ru = _empty(dev, bsz, n), _empty(dev, bsz, n)
+    _launch.launch("ipm_predict", "ldpc_ipm_predict", dev, *state[:6],
+                   terms.rp, terms.dy_s, terms.dxl, terms.dxu, terms.ry,
+                   terms.rl, terms.ru, dx, adx, terms.mu, nc, ap, ad, mu_aff,
+                   ry, rl, ru, v, bsz, t, n, FRAC, MU_FLOOR, plan["vec"],
                    plan["threads"])
+    return terms._replace(ry=ry, rl=rl, ru=ru, v=v), ap, ad, mu_aff
 
 
-def _kernels_vs_twins(dev, bsz, t, n, case, offset=0, plan=None):
-    """Both kernels (through the wrappers, or by ``plan``) against their
-    twins on the same card inputs, bit for bit."""
-    args, state, dirs, aps = _card_inputs(dev, bsz, t, n, case, offset)
-    want = ipm_step_len_ref(*args)
-    ref = ipm_update_ref(state, dirs, *aps)
-    out = tuple(v.clone() for v in state)
+def _correct_by(plan, state, terms, dx, adx):
+    """One correct launch by ``plan``, the state in place."""
+    (bsz, t), n, dev = state[2].shape, state[0].shape[1], dx.device
+    ap, ad = _empty(dev, bsz), _empty(dev, bsz)
+    _launch.launch("ipm_correct", "ldpc_ipm_correct", dev, *state, terms.rp,
+                   terms.dy_s, terms.dxl, terms.dxu, terms.ry, terms.rl,
+                   terms.ru, dx, adx, ap, ad, bsz, t, n, FRAC, FLOOR,
+                   1.0 - FLOOR, plan["vec"], plan["threads"])
+    return state, ap, ad
+
+
+def _sum_close(got, want, terms_abs, t, n):
+    """A per-lane sum over its n_compl: NaN where the twin's is NaN, the
+    twin's infinity where it is infinite, else within
+    (T + 2n) 2^-23 sum |terms| / n_compl."""
+    g = got.double().cpu().numpy()
+    w = want.double().cpu().numpy()
+    nan, fin = np.isnan(w), np.isfinite(w)
+    assert np.array_equal(np.isnan(g), nan)
+    assert np.array_equal(g[~nan & ~fin], w[~nan & ~fin])
+    n_compl = t + 2 * n
+    bound = n_compl * 2.0 ** -23 * terms_abs.cpu().numpy() / n_compl
+    assert (np.abs(g - w)[fin] <= bound[fin]).all()
+
+
+def _fused_vs_twins(dev, bsz, t, n, case, offset=0, plan=None):
+    """The three kernels (through the wrappers, one launch each, or by
+    ``plan``) against their twins on the same card inputs: every
+    elementwise output bit for bit, mu and mu_aff within the sums' bound
+    (the outputs after mu_aff against the twin given the kernel's)."""
+    v, nc = _card_inputs(dev, bsz, t, n, case, offset)
+    state, terms, dx, adx = _fstate(v), _terms(v), v["dx"], v["adx"]
+    want_p = ipm_prep_ref(state, v["aty"], v["cs"], v["be"], nc)
+    want_q = ipm_predict_ref(state, terms, dx, adx, nc)
+    want_c = ipm_correct_ref(state, terms, dx, adx)
+    out = tuple(u.clone() for u in state)
     if plan is None:
-        before = (ipm_kernel.STEP_LEN_LAUNCHES, ipm_kernel.UPDATE_LAUNCHES)
-        got = ipm_step_len(*args)
-        ipm_update(out, dirs, *aps)
-        assert (ipm_kernel.STEP_LEN_LAUNCHES - before[0],
-                ipm_kernel.UPDATE_LAUNCHES - before[1]) == (1, 1)
+        before = _launch.snapshot()
+        got_p = ipm_prep(state, v["aty"], v["cs"], v["be"], nc)
+        got_q = ipm_predict(state, terms, dx, adx, nc)
+        got_c = ipm_correct(out, terms, dx, adx)
+        assert {c.name: k for c, k, _ in _launch.since(before)} == {
+            "PREP_LAUNCHES": 1, "PREDICT_LAUNCHES": 1, "CORRECT_LAUNCHES": 1}
     else:
-        got = (torch.empty_like(aps[0]), torch.empty_like(aps[0]))
-        _step_len_by(plan, args, *got)
-        _update_by(plan, out, dirs, *aps)
+        got_p = _prep_by(plan, state, v, nc)
+        got_q = _predict_by(plan, state, terms, dx, adx, nc)
+        got_c = _correct_by(plan, out, terms, dx, adx)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert np.array_equal(_bits(g), _bits(w))
-    for g, w in zip(out, ref):
-        assert np.array_equal(_bits(g), _bits(w))
+    x, w, s, y, zl, zu, _ = state
+    for k in Terms._fields:
+        if k != "mu":
+            assert np.array_equal(_bits(getattr(got_p, k)),
+                                  _bits(getattr(want_p, k))), k
+    _sum_close(got_p.mu, want_p.mu, (y * s).abs().sum(-1)
+               + (zl * x).abs().sum(-1) + (zu * w).abs().sum(-1), t, n)
+    # predict: the step lengths exact, mu_aff within the bound, the
+    # corrector's targets exact given the kernel's mu_aff
+    for g, k in zip(got_q[1:3], want_q[1:3]):
+        assert np.array_equal(_bits(g), _bits(k))
+    dirs = directions_ref(terms, dx, adx)
+    ap_, ad_ = want_q[1][:, None], want_q[2][:, None]
+    _, dya, dsa, dzla, dzua, _ = dirs
+    _sum_close(got_q[3], want_q[3],
+               ((y + ad_ * dya) * (s + ap_ * dsa)).abs().sum(-1)
+               + ((zl + ad_ * dzla) * (x + ap_ * dx)).abs().sum(-1)
+               + ((zu + ad_ * dzua) * (w - ap_ * dx)).abs().sum(-1), t, n)
+    targets = corrector_targets_ref(state, terms, dirs, got_q[3])
+    for k, want in zip(("ry", "rl", "ru", "v"), targets):
+        assert np.array_equal(_bits(getattr(got_q[0], k)), _bits(want)), k
+    # correct: all exact, the state in place
+    assert all(g is o for g, o in zip(got_c[0], out))
+    for g, want in zip((*got_c[0], *got_c[1:]), (*want_c[0], *want_c[1:])):
+        assert np.array_equal(_bits(g), _bits(want))
+    if case in ("nan_dx", "nan_dy") and bsz > 1:  # the lane keeps its iterate
+        assert np.array_equal(_bits(got_c[0][6][1]), _bits(state[6][1]))
+        assert np.array_equal(_bits(got_c[0][0][1]),
+                              _bits(state[0][1].clamp(FLOOR, 1.0 - FLOOR)))
+    if case == "positive" and bsz > 1:
+        assert float(got_q[1][1]) == float(got_q[2][1]) == 1.0
+    if bsz > 2:
+        assert float(got_c[1][2]) == float(got_c[2][2]) == 1.0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("t", [128, 640, 1408])
+@pytest.mark.parametrize("t", [128, 256, 384, 512, 640, 896, 1152, 1408])
 def test_kernels_equal_twins_on_card(cuda_device, t, case):
-    _kernels_vs_twins(cuda_device, 128, t, 280, case)
+    """AGC-ALP's row tiers at 128 lanes and n = 280."""
+    _fused_vs_twins(cuda_device, 128, t, 280, case)
 
 
 # (B, T, n, offset): ragged (width 1), unaligned views (width 1), few
-# lanes, B = 256, H02's deepest tier (one block of 544 threads a lane),
-# lanes that take two passes of a block of 1024
+# lanes, an odd lane count, B = 256, H02's deepest tier (one block of 544
+# threads a lane), lanes that take two passes of a block of 1024
 CARD_SHAPES = [(128, 130, 283, 0), (128, 1408, 280, 1), (1, 1408, 280, 0),
-               (3, 640, 280, 0), (3, 130, 283, 1), (256, 1408, 280, 0),
-               (256, 128, 280, 0), (128, 2176, 640, 0), (128, 2176, 640, 1),
-               (4, 8192, 640, 0), (3, 8190, 283, 1)]
+               (3, 640, 280, 0), (3, 130, 283, 1), (127, 1152, 280, 0),
+               (256, 1408, 280, 0), (256, 128, 280, 0), (128, 2176, 640, 0),
+               (128, 2176, 640, 1), (4, 8192, 640, 0), (3, 8190, 283, 1)]
 
 
 @pytest.mark.gpu
@@ -470,7 +716,7 @@ CARD_SHAPES = [(128, 130, 283, 0), (128, 1408, 280, 1), (1, 1408, 280, 0),
 def test_kernels_equal_twins_on_card_at_every_shape(cuda_device, shape,
                                                     case):
     bsz, t, n, offset = shape
-    _kernels_vs_twins(cuda_device, bsz, t, n, case, offset)
+    _fused_vs_twins(cuda_device, bsz, t, n, case, offset)
 
 
 def _layout(bsz, vec, threads):
@@ -499,7 +745,7 @@ CARD_LAYOUTS = [
 @pytest.mark.parametrize("layout", CARD_LAYOUTS)
 def test_every_layout_equals_twins_on_card(cuda_device, layout, case):
     *shape, plan = layout
-    _kernels_vs_twins(cuda_device, *shape, case, plan=plan)
+    _fused_vs_twins(cuda_device, *shape, case, plan=plan)
 
 
 @pytest.mark.gpu
@@ -507,15 +753,16 @@ def test_kernels_refuse_an_illegal_layout(cuda_device):
     """The entry points check the plan they are given (width 4 on
     unaligned arrays, a block above 1024 threads, threads not a multiple
     of 32, a width other than 1 or 4) and refuse it."""
-    args, state, dirs, aps = _card_inputs(cuda_device, 4, 1408, 280,
-                                          "random", 1)
-    ap = torch.empty_like(aps[0])
+    v, nc = _card_inputs(cuda_device, 4, 1408, 280, "random", 1)
+    state, terms = _fstate(v), _terms(v)
     for plan in (_layout(4, 4, 352), _layout(4, 1, 1056), _layout(4, 1, 48),
                  _layout(4, 2, 352)):
-        with pytest.raises(RuntimeError, match="launch failed"):
-            _step_len_by(plan, args, ap, ap.clone())
-        with pytest.raises(RuntimeError, match="launch failed"):
-            _update_by(plan, state, dirs, *aps)
+        with pytest.raises(RuntimeError, match="ipm_prep launch failed"):
+            _prep_by(plan, state, v, nc)
+        with pytest.raises(RuntimeError, match="ipm_predict launch failed"):
+            _predict_by(plan, state, terms, v["dx"], v["adx"], nc)
+        with pytest.raises(RuntimeError, match="ipm_correct launch failed"):
+            _correct_by(plan, state, terms, v["dx"], v["adx"])
 
 
 @pytest.mark.gpu
@@ -523,24 +770,94 @@ def test_kernels_refuse_an_illegal_layout(cuda_device):
                                    (3, 130, 283, 1), (1, 1408, 280, 0),
                                    (4, 8192, 640, 0)])
 def test_kernels_replay_in_a_graph_on_card(cuda_device, shape):
-    """Both kernels captured in one CUDA graph (the step lengths feeding
-    the update, as in a Newton step) replay to the eager launches' bits;
-    at T = 8192 a lane takes two passes."""
+    """The three kernels captured in one CUDA graph (each feeding the next,
+    as in a Newton step) replay to the eager launches' bits; at T = 8192 a
+    lane takes two passes."""
     bsz, t, n, offset = shape
-    args, state, dirs, _ = _card_inputs(cuda_device, bsz, t, n, "nan_dx",
-                                        offset)
-    eager = tuple(v.clone() for v in state)
-    graphed = tuple(v.clone() for v in state)
-    want = ipm_step_len(*args)
-    ipm_update(eager, dirs, *want)
+    v, nc = _card_inputs(cuda_device, bsz, t, n, "nan_dx", offset)
+    state = _fstate(v)
+
+    def step(st):
+        terms = ipm_prep(st, v["aty"], v["cs"], v["be"], nc)
+        terms, ap, ad, mu_aff = ipm_predict(st, terms, v["dx"], v["adx"],
+                                            nc)
+        st, ap_c, ad_c = ipm_correct(st, terms, v["dx"], v["adx"])
+        return (*terms, ap, ad, mu_aff, *st, ap_c, ad_c)
+
+    eager = step(tuple(u.clone() for u in state))
+    graphed = tuple(u.clone() for u in state)
+    step(tuple(u.clone() for u in state))    # warm-up outside the capture
+    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = ipm_step_len(*args)
-        ipm_update(graphed, dirs, *got)
+        got = step(graphed)
     graph.replay()
     torch.cuda.synchronize()
-    for g, w in zip((*got, *graphed), (*want, *eager)):
+    for g, w in zip(got, eager):
         assert np.array_equal(_bits(g), _bits(w))
+
+
+# (B, T, n): AGC-ALP's tiers (lanes whole in one block of A^T y, and split
+# over blocks at the deeper ones), an odd lane count, ragged and H02's
+_RHS_SHAPES = [(128, 128, 280), (128, 640, 280), (128, 1408, 280),
+               (127, 1152, 280), (3, 130, 283), (128, 2176, 640)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _RHS_SHAPES)
+def test_newton_rhs_equals_its_twin_on_card(cuda_device, shape):
+    """The A^T y kernel's epilogue: -rd - A^T v + rl - ru bit for bit with
+    the twin's ops on the kernel's own A^T v, NaN and inf entries included;
+    one A^T y launch a call."""
+    bsz, t, n = shape
+    _, a, _ = _lp(5 + t, bsz, n, t, int(0.8 * t), cuda_device)
+    a8, _ = pack_rows(a)
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    v, rd, rl, ru = (torch.randn((bsz, w), generator=gen, device=cuda_device)
+                     for w in (t, n, n, n))
+    rd[1, 0], rl[1, 1], ru[2, 2] = float("nan"), float("inf"), -float("inf")
+    before = gemv_kernel.GEMV_T_LAUNCHES
+    got = ipm_kernel.newton_rhs(a8, v, rd, rl, ru, n)
+    assert gemv_kernel.GEMV_T_LAUNCHES - before == 1
+    want = newton_rhs_ref(rd, gemv_kernel.batched_gemv_t(a8, v, n), rl, ru)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(got), _bits(want))
+    with pytest.raises(ValueError, match="newton_rhs: rl must have shape"):
+        ipm_kernel.newton_rhs(a8, v, rd, rl[:, :-1], ru, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [128, 1408])
+def test_a_newton_step_makes_twelve_launches_and_no_torch_op(cuda_device, t):
+    """One Newton step on the card with the kernel backends (n = 280):
+    twelve hand-written launches, one of each step kernel, and nothing else
+    on the device: what PyTorch runs (a ``TorchDispatchMode`` sees every
+    ATen call) is allocations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    c, a, b = _lp(3 + t, 128, 280, t, int(0.7 * t), cuda_device)
+    solve = ipm_solver._Solve(cuda_device, 128, t, 280, True, True, False,
+                              False, False, 1e-6, 5, 1e-5, 0.8, 1e-2, False)
+    solve._copy_in(c, a, b, None, None, None)
+    solve._start()
+    solve._boundary()
+    torch.cuda.synchronize()
+    ops = []
+
+    class Seen(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func).split(".")[1])
+            return func(*args, **(kwargs or {}))
+
+    before = _launch.snapshot()
+    with Seen():
+        ipm_solver._newton(solve.lp, solve.state)
+    delta = _launch.since(before)
+    assert {c.name: k for c, k, _ in delta
+            if c.module == ipm_kernel.__name__} == {
+        "PREP_LAUNCHES": 1, "PREDICT_LAUNCHES": 1, "CORRECT_LAUNCHES": 1}
+    assert sum(k for _, k, _ in delta) == 12
+    assert set(ops) <= {"empty", "empty_like", "new_empty", "empty_strided"}
 
 
 @pytest.mark.gpu
@@ -572,7 +889,7 @@ def test_graph_solve_equals_eager_on_card(cuda_device, t, mode):
                for c in _launch.COUNTERS
                if c.module.rsplit(".", 1)[1] in ("gemv_kernel", "chol_kernel",
                                                  "ipm_kernel")}
-    assert len(counted) == 8
+    assert len(counted) == 9
     assert counted.pop((chol_kernel.__name__, "LAUNCHES")) == 0
     assert min(counted.values()) > 0
 

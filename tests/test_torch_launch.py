@@ -22,7 +22,9 @@ from ldpc_tpu_torch.ops.chol_kernel import (chol_diag_inv, chol_factor,
 from ldpc_tpu_torch.ops.gauss_kernel import gf2_eliminate
 from ldpc_tpu_torch.ops.gemv_kernel import (batched_gemv, batched_gemv_t,
                                             normal_build)
-from ldpc_tpu_torch.ops.ipm_kernel import ipm_step_len, ipm_update
+from ldpc_tpu_torch.ops.ipm_kernel import (ipm_correct, ipm_predict, ipm_prep,
+                                           newton_rhs)
+from ldpc_tpu_torch.ops.ipm_ref import Terms
 from ldpc_tpu_torch.ops.pdhg_kernel import pdhg_chunk
 
 # each wrapper module's launch counters: int name -> the Counter that
@@ -38,7 +40,8 @@ DECLARED = {
     "gemv_kernel": {"GEMV_LAUNCHES": "GEMV_TIER_LAUNCHES",
                     "GEMV_T_LAUNCHES": "GEMV_T_TIER_LAUNCHES",
                     "NORMAL_LAUNCHES": "NORMAL_TIER_LAUNCHES"},
-    "ipm_kernel": {"STEP_LEN_LAUNCHES": None, "UPDATE_LAUNCHES": None},
+    "ipm_kernel": {"PREP_LAUNCHES": None, "PREDICT_LAUNCHES": None,
+                   "CORRECT_LAUNCHES": None},
     "pdhg_kernel": {"LAUNCHES": "TIER_LAUNCHES"},
 }
 
@@ -90,6 +93,17 @@ def _meta(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device="meta")
 
 
+def _meta_state():
+    """An IPM iterate (x, w, s, y, zl, zu, ax) of 2 lanes, T = 4, n = 6."""
+    return tuple(_meta(2, 4 if i in (2, 3, 6) else 6) for i in range(7))
+
+
+def _meta_terms():
+    return Terms(*(_meta(2) if k == "mu" else
+                   _meta(2, 4 if k in ("rp", "dy_s", "ry", "v") else 6)
+                   for k in Terms._fields))
+
+
 # every wrapper that runs its twin on a CPU tensor, called on meta tensors
 I8, U8 = torch.int8, torch.uint8
 TWIN_WRAPPERS = {
@@ -108,12 +122,15 @@ TWIN_WRAPPERS = {
     "pdhg_chunk": lambda: pdhg_chunk(_meta(2, 6), _meta(2, 4, 6),
                                      _meta(2, 4), _meta(2, 6), _meta(2, 4),
                                      _meta(2, 6), _meta(2, 4), 8),
-    "ipm_step_len": lambda: ipm_step_len(
-        *(_meta(2, 4 if i in (0, 1, 5, 6) else 6) for i in range(11))),
-    "ipm_update": lambda: ipm_update(
-        tuple(_meta(2, 4 if i in (2, 3, 6) else 6) for i in range(7)),
-        tuple(_meta(2, 6 if i in (0, 3, 4) else 4) for i in range(6)),
-        _meta(2), _meta(2)),
+    "newton_rhs": lambda: newton_rhs(_meta(2, 4, 16, dtype=I8), _meta(2, 4),
+                                     _meta(2, 16), _meta(2, 16), _meta(2, 16),
+                                     16),
+    "ipm_prep": lambda: ipm_prep(_meta_state(), _meta(2, 6), _meta(2, 6),
+                                 _meta(2, 4), _meta()),
+    "ipm_predict": lambda: ipm_predict(_meta_state(), _meta_terms(),
+                                       _meta(2, 6), _meta(2, 4), _meta()),
+    "ipm_correct": lambda: ipm_correct(_meta_state(), _meta_terms(),
+                                       _meta(2, 6), _meta(2, 4)),
     "admm_iterate": lambda: admm_iterate(
         _meta(2, 6), _meta(2, 6), _meta(2, 3), _meta(2, 3),
         _meta(2, 1, dtype=torch.bool), _meta(2, 1, dtype=torch.int32), {},
