@@ -39,9 +39,17 @@ change nothing: a done pair is frozen and its count is not advanced. Sums
 are taken in the JAX package's order: each variable's ``k_max`` slots one
 after another in slot order (padding slots add exact zeros), each
 constraint's three slots likewise.
+
+While a profiler records, a decode is the span ``admm.decode`` and the
+stream's methods are ``admm.init``, ``admm.chunk`` (the kernel's launch)
+and ``admm.finish``. :data:`COUNTS` counts the decoder's work on the host,
+from shapes and calls alone: ``decodes``, ``chunks`` (calls of
+``stream_chunk``, on the card one launch each) and ``lanes_started`` (the
+rows handed to a decode or to ``stream_init``). Neither reads the device.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,10 +59,14 @@ from torch import nn
 from .. import _native
 from ..ops.admm_kernel import admm_iterate, pack_tables
 from ..ops.admm_ref import CHECK_EVERY, lane_param
+from ..utils.profiling import spanned
 from .base import DecodeResult, resolve_device
 
-__all__ = ["ADMMStructure", "QPADMMDecoder", "decode_qp_admm",
+__all__ = ["ADMMStructure", "COUNTS", "QPADMMDecoder", "decode_qp_admm",
            "decode_qp_admm_population"]
+
+# the decoder's work (the module's docstring), summed over the process
+COUNTS: Counter = Counter()
 
 # ADMMStructure's tables, in the order the decoders stack them
 TABLES = ("con_var", "con_coef", "b", "var_con", "var_coef", "e")
@@ -323,15 +335,22 @@ class QPADMMDecoder(nn.Module):
             raise ValueError(f"llrs on {llrs.device}, decoder on "
                              f"{self.e.device}")
 
+    @spanned("admm.decode")
     def decode_batch(self, llrs: torch.Tensor) -> DecodeResult:
         """(B, n) float32 LLRs on the decoder's device -> DecodeResult."""
-        return self.decode_batch_params(llrs, self.alpha, self.mu)
+        return self._decode(llrs, self.alpha, self.mu)
 
+    @spanned("admm.decode")
     def decode_batch_params(self, llrs: torch.Tensor, alpha,
                             mu) -> DecodeResult:
         """Decode with per-call (alpha, mu): scalars, or (B,) tensors giving
         each lane its own pair (the grid search's cells as a batch axis)."""
+        return self._decode(llrs, alpha, mu)
+
+    def _decode(self, llrs: torch.Tensor, alpha, mu) -> DecodeResult:
         self._check(llrs)
+        COUNTS["decodes"] += 1
+        COUNTS["lanes_started"] += llrs.shape[0]
         res = decode_qp_admm_population(self._population(), self.n,
                                         llrs[None], alpha, mu,
                                         self.max_iter, self.eps_stop)
@@ -340,10 +359,12 @@ class QPADMMDecoder(nn.Module):
 
     # ------------------------------------------------------------------
 
+    @spanned("admm.init")
     def stream_init(self, llrs: torch.Tensor) -> dict:
         """Fresh per-lane solver state for a batch of LLRs."""
         self._check(llrs)
         bsz, dev = llrs.shape[0], llrs.device
+        COUNTS["lanes_started"] += bsz
         q = _objective(llrs[:, None], self.structure.n_var)
         n_con = self.structure.n_con
         return {"q": q, "v": (q > 0.0).to(torch.float32),
@@ -352,6 +373,7 @@ class QPADMMDecoder(nn.Module):
                 "done": torch.zeros((bsz,), dtype=torch.bool, device=dev),
                 "it": torch.zeros((bsz,), dtype=torch.int32, device=dev)}
 
+    @spanned("admm.chunk")
     def stream_chunk(self, state: dict) -> dict:
         """Up to ``stream_chunk_iters`` iterations of the lanes that are not
         done: on the card one launch of the kernel, which updates the
@@ -364,6 +386,7 @@ class QPADMMDecoder(nn.Module):
         refilled lane starts from 0.
         """
         q = state["q"]
+        COUNTS["chunks"] += 1
         v, z, yl, done, it = admm_iterate(
             q, state["v"], state["z"], state["yl"], state["done"][:, None],
             state["it"][:, None], self._population(), self.alpha, self.mu,
@@ -375,6 +398,7 @@ class QPADMMDecoder(nn.Module):
     def stream_done(self, state: dict) -> torch.Tensor:
         return state["done"]
 
+    @spanned("admm.finish")
     def stream_finish(self, state: dict) -> DecodeResult:
         v = state["v"]
         bsz, dev = v.shape[0], v.device

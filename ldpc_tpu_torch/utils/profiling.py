@@ -12,8 +12,9 @@ The reference's only tracing is per-trial wall-clock time around
   (:data:`SPANS`), opened inside the function whose work each names (or
   around its whole call): the harness's block, channel, classification,
   synchronises and refills, the decoders' rounds, cut search, appends and
-  host reads, the LP solves and their chunk polls, and the IPM's graph
-  captures and copies into its static buffers;
+  host reads, the LP solves and their chunk polls, the IPM's graph
+  captures and copies into its static buffers, and QP-ADMM's decode and
+  its stream's start, chunks and finish;
 * :class:`Timer`: accumulating wall-clock timing whose ``stop`` waits for
   the card when it is handed tensors on it, so that queued work is
   counted.
@@ -47,6 +48,7 @@ SPANS = frozenset({
     "alp.decode", "alp.round", "alp.cut_search", "alp.append",
     "alp.tier_read", "alp.done_read", "agc.gauss",
     "lp.solve", "lp.poll", "lp.capture", "lp.copy_in",
+    "admm.decode", "admm.init", "admm.chunk", "admm.finish",
 })
 
 _OFF = contextlib.nullcontext()
